@@ -12,6 +12,16 @@ Phases, each of which must pass or the script exits non-zero:
            path's shapes (bf16, plus a small fp32 case), with its time,
            the plain version's time, one SDPA call's time as a yardstick
            (the port never calls SDPA) and the card's data-sheet bound;
+   conv    the 3x3 conv op (K4, K5; on no model path): both wrappers at the
+           VAE decoder's widths (bf16) and a ragged fp32 case with the
+           launch counts from 0, then each against its plain version, with
+           its time, the plain time, one cuDNN ``F.conv2d`` call's time as
+           a yardstick and the bound;
+   variants the flash-attention sweep (K6-K10; on no model path):
+           ``tools/bench_flash_variants.sweep`` at [2|8, 15552, 5, 64] bf16
+           with the launch counts from 0, then each variant against its
+           plain version at [8, 15552, 5, 64] and a ragged [2, 3001, 5, 64]
+           with L_k 2,999, with times as for the kernels;
 3. main    the fast preset (dilations [1, 25], one DDIM step, latent-space
            merge, bf16, snippet_batch 8, max_vae_bs 4) on a synthetic
            60-frame 432x768 clip at full SD2 width with seeded random
@@ -26,7 +36,8 @@ Phases, each of which must pass or the script exits non-zero:
            bf16 whole-path drift after the full solve is logged.
 
 Prints the card's name and power limit, a JSON line per measurement, a
-``{"kernels": [...]}`` line, and as its last line
+``{"kernels": [...]}`` line (a row per kernel for each of the TPU kernels
+K1-K10; K9 has two, one per instantiation), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,6 +52,8 @@ import time
 
 import numpy as np
 
+from rollingdepth_torch.tools.bench_flash_variants import cuda_ms
+
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, data sheet (SXM, 700 W)
 H100_FP32_FLOPS = 67e12  # outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
@@ -48,20 +61,6 @@ H100_BYTES_PER_S = 3.35e12
 
 def log(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 @contextlib.contextmanager
@@ -88,6 +87,129 @@ def attention_bound_ms(b, lq, lk, h, d, itemsize) -> tuple:
     peak = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def conv_bound_ms(n, h, w, cin, cout, itemsize) -> tuple:
+    """Least time for one conv call: x, w and b read once and o written once
+    at the memory rate, or 2 * 9 * Cin operations per output at the peak
+    rate of the type."""
+    nbytes = (n * h * w * (cin + cout) + 9 * cin * cout + cout) * itemsize
+    flops = 2.0 * n * h * w * cout * 9 * cin
+    peak = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+CONV_SHAPES = ((4, 432, 768, 128, 128), (4, 216, 384, 256, 256), (4, 108, 192, 512, 512))
+
+
+def conv_phase(torch, conv):
+    """K4 and K5: the public conv op with the counts from 0, then each kernel
+    against its plain version; returns the first shape's row per kernel."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = []  # (N, H, W, Cin, Cout), x, w, b
+    for shape, dtype in [(s, torch.bfloat16) for s in CONV_SHAPES] + [((2, 37, 53, 13, 21), torch.float32)]:
+        n, h, w, cin, cout = shape
+        x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dtype)
+        wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") * (9 * cin) ** -0.5).to(dtype)
+        b = torch.randn((cout,), generator=gen, device="cuda").to(dtype)
+        cases.append((shape, x, wt, b))
+
+    conv.reset_launch_counts()
+    for _, x, wt, b in cases:
+        for fn in conv.KERNELS:
+            fn(x, wt, b)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in conv.KERNELS}
+    if launches != {fn.__name__: len(cases) for fn in conv.KERNELS}:
+        raise AssertionError(f"conv launches {launches} != {len(cases)} calls each")
+    log({"phase": "conv", "calls": len(cases), "launches": launches})
+
+    rows = {}
+    for shape, x, wt, b in cases:
+        n, h, w, cin, cout = shape
+        plain = lambda: conv.conv3x3_reference(x, wt, b)  # noqa: E731
+        ref = plain()
+        scale = ref.float().abs().max().item()
+        # bf16: one rounding of the output plus the bias add, 2e-2 of the
+        # output's scale; fp32 (TF32 off): 1e-4 of it
+        tol = (2e-2 if x.dtype == torch.bfloat16 else 1e-4) * scale
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        x_nchw = x.permute(0, 3, 1, 2)  # NHWC memory: channels_last
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library_ms = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, b, padding=1), 10)
+        bound_ms, bound_by = conv_bound_ms(n, h, w, cin, cout, x.element_size())
+        for fn in conv.KERNELS:
+            got = fn(x, wt, b)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= tol or not torch.isfinite(got).all():
+                raise AssertionError(f"{fn.__name__} {shape} {x.dtype}: max err {err} > {tol}")
+            row = {"name": fn.__name__, "shape": list(shape), "dtype": str(x.dtype).split(".")[-1],
+                   "max_abs_err": err, "tol": tol, "ms": cuda_ms(lambda: fn(x, wt, b), 10),
+                   "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            log(row)
+            rows.setdefault(fn.__name__, row)
+            del got
+        del ref
+    del cases
+    return rows, launches
+
+
+VARIANT_CASES = (((8, 15552, 5, 64), 15552, True), ((2, 3001, 5, 64), 2999, False))  # [B, L_q, H, D], L_k, main
+
+
+def variants_phase(torch, fv, bench):
+    """K6-K10: the sweep entry point with the counts from 0, then each
+    variant against its plain version; returns the main shape's rows."""
+    import torch.nn.functional as F
+
+    iters = 3
+    fv.reset_launch_counts()
+    sweep = bench.sweep(iters=iters, verbose=False)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in fv.KERNELS}
+    per_shape = {fn.__name__: 1 + 2 + iters for fn in fv.KERNELS}  # check, warm-up, timed
+    per_shape["flash_fused"] += 1  # the sweep's reference
+    want = {name: n * len(bench.SHAPES) for name, n in per_shape.items()}
+    if launches != want:
+        raise AssertionError(f"variant launches {launches} != {want}")
+    log({"phase": "variants", "sweep": sweep, "launches": launches})
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for (b, lq, h, d), lk, main in VARIANT_CASES:
+        q = torch.randn((b, lq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((b, lk, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b, lk, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        iters = 10 if main else 50
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
+        bound_ms, bound_by = attention_bound_ms(b, lq, lk, h, d, q.element_size())
+        for fn in fv.KERNELS:
+            name = fn.__name__
+            got = fn(q, k, v)
+            plain = lambda: fv.reference(name, q, k, v)  # noqa: E731
+            ref = plain()
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            # scores, P and the output rounded to bf16, exp2 by the SFU's
+            # approximation: 2e-2 of the output's scale, as for K1-K3
+            tol = 2e-2 * ref.float().abs().max().item()
+            if not err <= tol or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {(b, lq, h, d)} L_k={lk}: max err {err} > {tol}")
+            row = {"name": name, "shape": [b, lq, h, d], "L_k": lk, "dtype": "bfloat16", "max_abs_err": err,
+                   "tol": tol, "ms": cuda_ms(lambda: fn(q, k, v), iters),
+                   "plain_ms": cuda_ms(plain, 2 if main else 5, warmup=1), "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            log(row)
+            if main:
+                rows[name] = row
+            del got, ref
+        del q, k, v
+    return rows, launches
 
 
 def kernel_phase(torch, fa):
@@ -149,7 +271,10 @@ def main() -> int:
         return 2
     from rollingdepth_torch.ops import _build
     from rollingdepth_torch.ops import attention as attn
+    from rollingdepth_torch.ops import conv3x3 as conv
     from rollingdepth_torch.ops import flash_attention as fa
+    from rollingdepth_torch.ops import flash_variants as fv
+    from rollingdepth_torch.tools import bench_flash_variants as bench
     from rollingdepth_torch.utils.synthetic import FAST_PRESET, random_depth_pipeline
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -168,6 +293,11 @@ def main() -> int:
     log({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": _build.build_seconds})
 
     rows = kernel_phase(torch, fa)
+    t0 = time.perf_counter()
+    conv_rows, conv_launches = conv_phase(torch, conv)
+    t1 = time.perf_counter()
+    variant_rows, variant_launches = variants_phase(torch, fv, bench)
+    log({"phase": "slice2_seconds", "conv": t1 - t0, "variants": time.perf_counter() - t1})
 
     # ---- main path at full SD2 width
     dtype = torch.bfloat16
@@ -271,15 +401,26 @@ def main() -> int:
     }
     counted = {"nomax": launches["flash_attention_nomax"], "max": launches_g["flash_attention_max"],
                "wide": launches["flash_attention_wide"]}
-    kernels = []
-    for name in ("nomax", "max", "wide"):
-        r = rows[name]
-        kernels.append({
-            "name": f"flash_attention_{name}", "route": "cuda", "source": "rollingdepth_torch/csrc/flash_attn.cu",
-            "replaces": replaces[name], "launches": counted[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-        })
+    def entry(name, tpu, source, replaces_at, launched, r, on_main_path, **extra):
+        return {"name": name, "tpu_kernel": tpu, "route": "cuda", "source": source, "replaces": replaces_at,
+                "launches": launched, "on_main_path": on_main_path, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "shape": r["shape"], **extra}
+
+    flash_src, conv_src = "rollingdepth_torch/csrc/flash_attn.cu", "rollingdepth_torch/csrc/conv3x3.cu"
+    kernels = [entry(f"flash_attention_{name}", tpu, flash_src, replaces[name], counted[name], rows[name], True)
+               for tpu, name in (("K1", "nomax"), ("K2", "max"), ("K3", "wide"))]
+    kernels += [entry(name, tpu, conv_src, f"rollingdepth_tpu/ops/conv3x3.py:{line}", conv_launches[name],
+                      conv_rows[name], False)
+                for tpu, name, line in (("K4", "conv3x3_same", 40), ("K5", "conv3x3_same_db", 132))]
+    # K7 and K9 (without bf16_exp) launch K2's and K1's kernels; the K9 row
+    # with bf16_exp is its own instantiation, so K9 has two rows
+    for tpu, name, line, shares in (("K6", "flash_exp2", 29, None), ("K7", "flash_fused", 103, "rd_flash_max"),
+                                    ("K8", "flash_bf16", 193, None), ("K9", "flash_nomax", 283, "rd_flash_nomax"),
+                                    ("K9", "flash_nomax_bf16_exp", 283, None), ("K10", "flash_nomask", 363, None)):
+        extra = {"shares_kernel": shares} if shares else {}
+        kernels.append(entry(name, tpu, flash_src, f"scripts/bench_flash_variants.py:{line}",
+                             variant_launches[name], variant_rows[name], False, **extra))
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-// Flash attention forward kernels for Hopper (sm_90a), three TPU kernels' ports.
+// Flash attention forward kernels for Hopper (sm_90a), the ports of eight TPU kernels.
 //
 //   rd_flash_nomax  <- rollingdepth_tpu/ops/flash_attention.py::_flash_kernel_packed_nomax
 //   rd_flash_max    <- rollingdepth_tpu/ops/flash_attention.py::_flash_kernel_packed
@@ -14,6 +14,22 @@
 // contribute exactly 0 to both the numerator and the normaliser.  P is
 // rounded to v's dtype before P.V; the narrow kernels sum the rounded P
 // (as the TPU kernel's ones-column did), the wide kernel the fp32 P.
+//
+// The sweep variants of scripts/bench_flash_variants.py are further
+// instantiations of the same bf16 template (their fp32 inputs take the FMA
+// kernel; K7 and K9 without bf16_exp compute what rd_flash_max and
+// rd_flash_nomax compute, and their wrappers launch those):
+//
+//   rd_flash_exp2           <- _kernel_exp2   running max, fp32 normaliser
+//   rd_flash_bf16           <- _kernel_bf16   PRESCALE_Q + BF16_SCORES
+//   rd_flash_nomax_bf16exp  <- _kernel_nomax(bf16_exp=True)  NO_MAX + BF16_SCORES
+//   rd_flash_nomask         <- _kernel_nomask NO_MAX + PRESCALE_Q
+//
+// PRESCALE_Q rounds q * scale * log2(e) to bf16 once, as the Q tile is
+// staged, and the score is then used unscaled.  BF16_SCORES rounds the
+// score to bf16, and, with a running max, the difference s - m too; p =
+// exp2 of that is rounded to bf16 as always.  Both default to false, so
+// the first three kernels' instantiations are unchanged.
 //
 // Layout: q, k, v and o are [B, L, H, D] contiguous, read in place (no fold
 // or padding pass).  bf16 inputs run on the tensor cores with
@@ -80,13 +96,36 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s, int pitch, const __n
   }
 }
 
+// load_tile, with every value multiplied by `scale` and rounded to bf16
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile_scaled(__nv_bfloat16* s, int pitch, const __nv_bfloat16* g,
+                                                 long long row_stride, int row0, int L, int col0, int d,
+                                                 float scale) {
+  constexpr int VPR = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < L && col0 + c < d)
+      val = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * row_stride + col0 + c);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(s + r * pitch + c) = val;
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
 template <int DQK, int DV>
 constexpr int bf16_smem_bytes() {
   return (BQ * (DQK + 8) + BK * (DQK + 8) + BK * (DV + 8)) * 2;
 }
 
 // DQK: padded q.k width (>= d); DV: output columns per CTA.
-template <int DQK, int DV, bool NO_MAX, bool SUM_ROUNDED>
+template <int DQK, int DV, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q = false, bool BF16_SCORES = false>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -109,7 +148,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const __nv_bfloat16* vb = v + (long long)b * Lk * rs + (long long)h * d;
   __nv_bfloat16* ob = o + (long long)b * Lq * rs + (long long)h * d;
 
-  load_tile<BQ, DQK>(sQ, QP, qb, rs, q0, Lq, 0, d);
+  if (PRESCALE_Q)
+    load_tile_scaled<BQ, DQK>(sQ, QP, qb, rs, q0, Lq, 0, d, scale_log2);
+  else
+    load_tile<BQ, DQK>(sQ, QP, qb, rs, q0, Lq, 0, d);
 
   float m_r[2] = {MASKED, MASKED};  // running max of rows g and g+8 (unused if NO_MAX)
   float l_r[2] = {0.f, 0.f};        // this thread's partial row sums
@@ -148,7 +190,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
+        float x = PRESCALE_Q ? s[nt][e] : s[nt][e] * scale_log2;
+        if (BF16_SCORES) x = round_bf16(x);
         if (ragged && k0 + nt * 8 + tig * 2 + (e & 1) >= Lk) x = MASKED;
         s[nt][e] = x;
       }
@@ -175,8 +218,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
           acc[nt][2 * r + 1] *= corr;
         }
       }
-      mrow[0] = m_r[0];
-      mrow[1] = m_r[1];
+      mrow[0] = BF16_SCORES ? round_bf16(m_r[0]) : m_r[0];
+      mrow[1] = BF16_SCORES ? round_bf16(m_r[1]) : m_r[1];
     }
 
     // P = exp2(S - m) rounded to bf16, as mma A fragments (16 keys each)
@@ -189,7 +232,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         const float x = s[nt][e];
         // a masked key is exactly 0 (in the max-free kernel exp2 alone
         // would give exp2(-1e30) = 0 too; the test keeps that explicit)
-        p[e] = (x == MASKED) ? 0.f : fast_exp2(x - mrow[e >> 1]);
+        const float xm = (BF16_SCORES && !NO_MAX) ? round_bf16(x - mrow[e >> 1]) : x - mrow[e >> 1];
+        p[e] = (x == MASKED) ? 0.f : fast_exp2(xm);
       }
       const __nv_bfloat162 lo = __floats2bfloat162_rn(p[0], p[1]);
       const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2], p[3]);
@@ -327,10 +371,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
 
 // ---- launchers ----------------------------------------------------------------
 
-template <int DQK, int DV, bool NO_MAX, bool SUM_ROUNDED>
+template <int DQK, int DV, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q = false, bool BF16_SCORES = false>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
                 int d, float scale_log2, cudaStream_t stream) {
-  auto kern = flash_fwd_bf16<DQK, DV, NO_MAX, SUM_ROUNDED>;
+  auto kern = flash_fwd_bf16<DQK, DV, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>;
   constexpr int smem = bf16_smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -366,6 +410,16 @@ int launch_f32_any(const void* q, const void* k, const void* v, void* o, int B, 
 
 constexpr int ERR_UNSUPPORTED = -1;
 
+// A narrow bf16 head (d % 8 == 0, d < 128): 64 or 128 padded columns.
+template <bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q = false, bool BF16_SCORES = false>
+int launch_narrow(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
+                  int d, float sl, cudaStream_t st) {
+  if (d % 8 != 0 || d >= 128) return ERR_UNSUPPORTED;
+  if (d <= 64)
+    return launch_bf16<64, 64, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
+  return launch_bf16<128, 128, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
+}
+
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32.  Returns cudaGetLastError() after the launch,
@@ -377,9 +431,7 @@ extern "C" int rd_flash_nomax(int dtype, const void* q, const void* k, const voi
     if (d > 512) return ERR_UNSUPPORTED;
     return launch_f32_any<true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
   }
-  if (d % 8 != 0 || d >= 128) return ERR_UNSUPPORTED;
-  if (d <= 64) return launch_bf16<64, 64, true, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  return launch_bf16<128, 128, true, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  return launch_narrow<true, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
 }
 
 extern "C" int rd_flash_max(int dtype, const void* q, const void* k, const void* v, void* o,
@@ -389,9 +441,7 @@ extern "C" int rd_flash_max(int dtype, const void* q, const void* k, const void*
     if (d > 512) return ERR_UNSUPPORTED;
     return launch_f32_any<false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
   }
-  if (d % 8 != 0 || d >= 128) return ERR_UNSUPPORTED;
-  if (d <= 64) return launch_bf16<64, 64, false, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  return launch_bf16<128, 128, false, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  return launch_narrow<false, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
 }
 
 extern "C" int rd_flash_wide(int dtype, const void* q, const void* k, const void* v, void* o,
@@ -405,4 +455,43 @@ extern "C" int rd_flash_wide(int dtype, const void* q, const void* k, const void
   if (d <= 128) return launch_bf16<128, 128, false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
   if (d <= 256) return launch_bf16<256, 128, false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
   return launch_bf16<512, 128, false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+}
+
+// K6: running max, fp32 normaliser (the sum of unrounded P), narrow heads.
+extern "C" int rd_flash_exp2(int dtype, const void* q, const void* k, const void* v, void* o, int B,
+                             int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (d > 512) return ERR_UNSUPPORTED;
+    return launch_f32_any<false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  }
+  return launch_narrow<false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+}
+
+// K8: q pre-scaled and rounded, bf16 scores, running max; bf16 only.
+extern "C" int rd_flash_bf16(int dtype, const void* q, const void* k, const void* v, void* o, int B,
+                             int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
+  if (dtype != 0) return ERR_UNSUPPORTED;
+  return launch_narrow<false, true, true, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2,
+                                                static_cast<cudaStream_t>(stream));
+}
+
+// K9 with bf16_exp: no max, p = exp2 of the score rounded to bf16; bf16 only.
+extern "C" int rd_flash_nomax_bf16exp(int dtype, const void* q, const void* k, const void* v, void* o,
+                                      int B, int H, int Lq, int Lk, int d, float scale_log2,
+                                      void* stream) {
+  if (dtype != 0) return ERR_UNSUPPORTED;
+  return launch_narrow<true, true, false, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2,
+                                                static_cast<cudaStream_t>(stream));
+}
+
+// K10: q pre-scaled and rounded, no max; padded keys get p = 0.
+extern "C" int rd_flash_nomask(int dtype, const void* q, const void* k, const void* v, void* o, int B,
+                               int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (d > 512) return ERR_UNSUPPORTED;
+    return launch_f32_any<true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  }
+  return launch_narrow<true, true, true, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
 }

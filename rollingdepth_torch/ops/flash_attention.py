@@ -35,13 +35,20 @@ def attention_exp2_reference(
     no_max: bool = False,
     sum_rounded: bool = True,
     block_q: int = 1024,
+    prescale_q: bool = False,
+    bf16_scores: bool = False,
 ) -> torch.Tensor:
     """The kernels' arithmetic in plain PyTorch, looped over query chunks.
 
     Scores in fp32 in the log2 domain, ``s = (q.k) * scale * log2(e)``;
     ``p = exp2(s)`` with no max when ``no_max``, else ``exp2(s - rowmax)``;
     P rounded to v's dtype before P.V with fp32 sums; the normaliser sums the
-    rounded P when ``sum_rounded`` (narrow kernels) or the fp32 P (wide)."""
+    rounded P when ``sum_rounded`` (narrow kernels) or the fp32 P (wide).
+
+    The sweep variants' roundings (``ops/flash_variants.py``):
+    ``prescale_q`` rounds ``q * scale * log2(e)`` to q's dtype and uses the
+    score unscaled; ``bf16_scores`` rounds s, and ``s - rowmax``, to bf16,
+    and P to bf16."""
     b, lq, h, d = q.shape
     sc = (d**-0.5 if scale is None else scale) * LOG2E
     kf = k.permute(0, 2, 3, 1).float()  # [B, H, D, Lk]
@@ -49,11 +56,20 @@ def attention_exp2_reference(
     out = torch.empty_like(q)
     for i in range(0, lq, block_q):
         qc = q[:, i : i + block_q].permute(0, 2, 1, 3).float()  # [B, H, bq, D]
-        s = torch.matmul(qc, kf) * sc
+        if prescale_q:
+            qc = (qc * sc).to(q.dtype).float()
+        s = torch.matmul(qc, kf)
+        if not prescale_q:
+            s = s * sc
+        if bf16_scores:
+            s = s.bfloat16().float()
         if not no_max:
             s = s - s.amax(dim=-1, keepdim=True)
-        p = torch.exp2(s).to(v.dtype)
-        denom = (p.float() if sum_rounded else torch.exp2(s)).sum(dim=-1, keepdim=True)
+            if bf16_scores:
+                s = s.bfloat16().float()
+        p32 = torch.exp2(s)
+        p = p32.to(torch.bfloat16 if bf16_scores else v.dtype)
+        denom = (p.float() if sum_rounded else p32).sum(dim=-1, keepdim=True)
         o = torch.matmul(p.float(), vf.float()) / denom
         out[:, i : i + block_q] = o.permute(0, 2, 1, 3).to(q.dtype)
     return out
