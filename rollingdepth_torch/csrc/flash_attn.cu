@@ -16,7 +16,7 @@
 // (as the TPU kernel's ones-column did), the wide kernel the fp32 P.
 //
 // The sweep variants of scripts/bench_flash_variants.py are further
-// instantiations of the same bf16 template (their fp32 inputs take the FMA
+// instantiations of the narrow template (their fp32 inputs take the FMA
 // kernel; K7 and K9 without bf16_exp compute what rd_flash_max and
 // rd_flash_nomax compute, and their wrappers launch those):
 //
@@ -25,38 +25,56 @@
 //   rd_flash_nomax_bf16exp  <- _kernel_nomax(bf16_exp=True)  NO_MAX + BF16_SCORES
 //   rd_flash_nomask         <- _kernel_nomask NO_MAX + PRESCALE_Q
 //
-// PRESCALE_Q rounds q * scale * log2(e) to bf16 once, as the Q tile is
-// staged, and the score is then used unscaled.  BF16_SCORES rounds the
-// score to bf16, and, with a running max, the difference s - m too; p =
-// exp2 of that is rounded to bf16 as always.  Both default to false, so
-// the first three kernels' instantiations are unchanged.
+// PRESCALE_Q rounds q * scale * log2(e) to bf16 once, in shared memory after
+// the Q tile lands, and the score is then used unscaled.  BF16_SCORES rounds
+// the score to bf16, and, with a running max, the difference s - m too; p =
+// exp2 of that is rounded to bf16 as always.
 //
-// Layout: q, k, v and o are [B, L, H, D] contiguous, read in place (no fold
-// or padding pass).  bf16 inputs run on the tensor cores with
-// mma.sync.m16n8k16 (fp32 accumulation): one CTA per (64-query tile,
-// batch*head, output-column chunk), 4 warps of 16 query rows each, looping
-// over 64-key tiles staged in shared memory.  fp32 inputs run a plain FMA
-// kernel: one warp per query row, 32-key tiles.
+// Layout: q, k, v and o are [B, L, H, D] contiguous, read in place.  TMA
+// reads them through 4-D tensor maps (d, H, L, B) in boxes of 64 columns:
+// columns past d and rows past L arrive as zeros, and no box crosses a
+// head or a batch.  bf16 runs on the tensor cores with wgmma (fp32
+// accumulation), fp32 on a plain FMA kernel (one warp per query row).  The
+// PTX (cp.async.bulk.tensor, mbarrier, wgmma.mma_async, setmaxnreg) is
+// wrapped in hopper.cuh.
+//
+// Narrow heads (d < 128, padded to 64 or 128 columns): one CTA per
+// (64*NCW-query tile, batch*head), NCW = 2 consumer warpgroups (3 for the
+// bf16-score variants) plus one producer warpgroup.  One producer thread
+// keeps a 3-stage ring of K and V tiles (128 keys for d <= 64, 64 for
+// d <= 128) in flight with TMA; the producer gives up registers
+// (setmaxnreg) to the consumers, which own 64 query rows each.  A consumer
+// computes S = Q K^T with wgmma from shared memory, the softmax in
+// registers, and O += P V with P as the register A operand and V as the
+// transposed (MN-major) B operand in its natural [keys, d] layout.  The
+// consumers take turns on the tensor cores, round robin (named barriers):
+// each turn issues the previous tile's P V and this tile's Q K^T, so one
+// warpgroup's softmax runs under the others' products.
+//
+// Wide heads (d <= 512, padded to 128, 256 or 512): one CTA per (64-query
+// tile, batch*head), 32-key tiles in a 2-stage ring.  For d = 512 two
+// consumer warpgroups each own 256 output columns (a 64x256 fp32
+// accumulator) and compute half of the 512-deep Q K^T contraction; the two
+// partial score tiles are summed through shared memory, so each (query
+// tile, key tile) product is computed once, and both apply the same m and l.
+// Narrower wide heads use one consumer warpgroup.
 //
 // Bound on the H100 (data-sheet estimates): at the UNet's first level,
 // [8, 15552, 5, 64] bf16, one launch is 2.48 TFLOP of mma (2.5 ms at
-// 989 TFLOP/s) and 9.7e9 exp2 on the SFUs (~2.3 ms at 16 per SM-clock),
-// so the exp stream bounds it as much as the tensor cores.  This first
-// design uses synchronous tile loads and mma.sync, not TMA and wgmma; it
-// reaches neither bound.  The d=512 head (VAE mid-block) splits the output
-// columns over the grid (128 per CTA) and recomputes QK^T in each CTA,
-// since a [64, 512] fp32 accumulator does not fit one CTA's registers.
+// 989 TFLOP/s) and 9.7e9 exp2 on the SFUs (~2.5 ms at 16 per SM-clock).
+// Whether the SFU binds this design is not measured yet (PERF.md).  The VAE's d = 512 head,
+// [4, 5184, 1, 512], is 0.22 TFLOP (0.22 ms), with 64 multiplies of the
+// tensor cores per exp2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per CTA (4 warps x 16)
-constexpr int BK = 64;       // keys per shared-memory tile
-constexpr int NTHREADS = 128;
+using namespace hopper;
+
 constexpr float MASKED = -1e30f;
+constexpr int ERR_UNSUPPORTED = -1;
+constexpr int ERR_TENSOR_MAP = -2;
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -64,222 +82,444 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copy rows [row0, row0+ROWS) x cols [col0, col0+COLS) of a [L, row_stride]
-// bf16 matrix into shared memory (row pitch `pitch`), zero past L and past d.
-// d and col0 are multiples of 8, so each 16-byte vector is wholly in or out.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, int pitch, const __nv_bfloat16* g,
-                                          long long row_stride, int row0, int L, int col0, int d) {
-  constexpr int VPR = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L && col0 + c < d)
-      val = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * row_stride + col0 + c);
-    *reinterpret_cast<uint4*>(s + r * pitch + c) = val;
-  }
-}
-
-// load_tile, with every value multiplied by `scale` and rounded to bf16
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile_scaled(__nv_bfloat16* s, int pitch, const __nv_bfloat16* g,
-                                                 long long row_stride, int row0, int L, int col0, int d,
-                                                 float scale) {
-  constexpr int VPR = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L && col0 + c < d)
-      val = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * row_stride + col0 + c);
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-    }
-    *reinterpret_cast<uint4*>(s + r * pitch + c) = val;
-  }
-}
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-template <int DQK, int DV>
-constexpr int bf16_smem_bytes() {
-  return (BQ * (DQK + 8) + BK * (DQK + 8) + BK * (DV + 8)) * 2;
-}
-
-// DQK: padded q.k width (>= d); DV: output columns per CTA.
-template <int DQK, int DV, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q = false, bool BF16_SCORES = false>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               int H, int Lq, int Lk, int d, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int QP = DQK + 8, KP = DQK + 8, VP = DV + 8;  // +16 B: no bank conflicts
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * QP;
-  __nv_bfloat16* sV = sK + BK * KP;
-  const uint16_t* sVu = reinterpret_cast<const uint16_t*>(sV);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int dv0 = blockIdx.z * DV;
-  const long long rs = (long long)H * d;
-  const __nv_bfloat16* qb = q + (long long)b * Lq * rs + (long long)h * d;
-  const __nv_bfloat16* kb = k + (long long)b * Lk * rs + (long long)h * d;
-  const __nv_bfloat16* vb = v + (long long)b * Lk * rs + (long long)h * d;
-  __nv_bfloat16* ob = o + (long long)b * Lq * rs + (long long)h * d;
-
-  if (PRESCALE_Q)
-    load_tile_scaled<BQ, DQK>(sQ, QP, qb, rs, q0, Lq, 0, d, scale_log2);
-  else
-    load_tile<BQ, DQK>(sQ, QP, qb, rs, q0, Lq, 0, d);
-
-  float m_r[2] = {MASKED, MASKED};  // running max of rows g and g+8 (unused if NO_MAX)
-  float l_r[2] = {0.f, 0.f};        // this thread's partial row sums
-  float acc[DV / 8][4];
+// One key tile's softmax on a wgmma score accumulator of NT 8-key blocks
+// (thread layout of m64nN: s[4*nt + e] is row g + 8*(e >> 1), key 8*nt +
+// 2*tig + (e & 1)).  Scales and masks s, updates the running max m_r and
+// the partial row sums l_r of rows g and g + 8, rescales the output
+// accumulator by corr, and leaves P rounded to bf16 in pa as wgmma A
+// fragments of 16 keys each.
+template <int NT, int NACC, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT * 4], float (&acc)[NACC], uint32_t (&pa)[NT / 2][4],
+                                             float (&m_r)[2], float (&l_r)[2], int k0, int Lk, int tig,
+                                             float scale_log2) {
 #pragma unroll
-  for (int i = 0; i < DV / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int r0 = warp * 16;
-  const int n_kt = (Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed
-    load_tile<BK, DQK>(sK, KP, kb, rs, k0, Lk, 0, d);
-    load_tile<BK, DV>(sV, VP, vb, rs, k0, Lk, dv0, d);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[BK / 8][4];
+  for (int i = 0; i < NT * 4; ++i) {
+    float x = PRESCALE_Q ? s[i] : s[i] * scale_log2;
+    s[i] = BF16_SCORES ? round_bf16(x) : x;
+  }
+  if (k0 + NT * 8 > Lk) {  // the last tile: keys past L_k
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-      const __nv_bfloat16* qp = sQ + (r0 + g) * QP + kk * 16 + tig * 2;
-      const uint32_t a[4] = {ld32(qp), ld32(qp + 8 * QP), ld32(qp + 8), ld32(qp + 8 * QP + 8)};
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* kp = sK + (nt * 8 + g) * KP + kk * 16 + tig * 2;
-        const uint32_t bb[2] = {ld32(kp), ld32(kp + 8)};
-        mma_16816(s[nt], a, bb);
-      }
-    }
-
-    // log2-domain scores, masked keys
-    const bool ragged = k0 + BK > Lk;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = PRESCALE_Q ? s[nt][e] : s[nt][e] * scale_log2;
-        if (BF16_SCORES) x = round_bf16(x);
-        if (ragged && k0 + nt * 8 + tig * 2 + (e & 1) >= Lk) x = MASKED;
-        s[nt][e] = x;
-      }
-    }
-
-    float mrow[2] = {0.f, 0.f};
-    if (!NO_MAX) {
-      float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float corr = fast_exp2(m_r[r] - mx[r]);
-        m_r[r] = mx[r];
-        l_r[r] *= corr;
-#pragma unroll
-        for (int nt = 0; nt < DV / 8; ++nt) {
-          acc[nt][2 * r] *= corr;
-          acc[nt][2 * r + 1] *= corr;
-        }
-      }
-      mrow[0] = BF16_SCORES ? round_bf16(m_r[0]) : m_r[0];
-      mrow[1] = BF16_SCORES ? round_bf16(m_r[1]) : m_r[1];
-    }
-
-    // P = exp2(S - m) rounded to bf16, as mma A fragments (16 keys each)
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[nt][e];
-        // a masked key is exactly 0 (in the max-free kernel exp2 alone
-        // would give exp2(-1e30) = 0 too; the test keeps that explicit)
-        const float xm = (BF16_SCORES && !NO_MAX) ? round_bf16(x - mrow[e >> 1]) : x - mrow[e >> 1];
-        p[e] = (x == MASKED) ? 0.f : fast_exp2(xm);
-      }
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(p[0], p[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2], p[3]);
-      if (SUM_ROUNDED) {
-        l_r[0] += __low2float(lo) + __high2float(lo);
-        l_r[1] += __low2float(hi) + __high2float(hi);
-      } else {
-        l_r[0] += p[0] + p[1];
-        l_r[1] += p[2] + p[3];
-      }
-      pa[nt >> 1][(nt & 1) * 2 + 0] = bf16_bits(lo);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = bf16_bits(hi);
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const int kr = kk * 16 + tig * 2;
-#pragma unroll
-      for (int nt = 0; nt < DV / 8; ++nt) {
-        const int c = nt * 8 + g;
-        const uint32_t bb[2] = {
-            (uint32_t)sVu[kr * VP + c] | ((uint32_t)sVu[(kr + 1) * VP + c] << 16),
-            (uint32_t)sVu[(kr + 8) * VP + c] | ((uint32_t)sVu[(kr + 9) * VP + c] << 16)};
-        mma_16816(acc[nt], pa[kk], bb);
-      }
-    }
+    for (int i = 0; i < NT * 4; ++i)
+      if (k0 + (i / 4) * 8 + tig * 2 + (i & 1) >= Lk) s[i] = MASKED;
   }
 
+  float mrow[2] = {0.f, 0.f};
+  if (!NO_MAX) {
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * nt + 0], s[4 * nt + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float corr = fast_exp2(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= corr;
+#pragma unroll
+      for (int nt = 0; nt < NACC / 4; ++nt) {
+        acc[4 * nt + 2 * r] *= corr;
+        acc[4 * nt + 2 * r + 1] *= corr;
+      }
+    }
+    mrow[0] = BF16_SCORES ? round_bf16(m_r[0]) : m_r[0];
+    mrow[1] = BF16_SCORES ? round_bf16(m_r[1]) : m_r[1];
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // a masked key is exactly 0: m is the max over at least one real
+      // key, so s - m <= -1e30 (rounded to bf16 or not), and ex2.approx.ftz
+      // of that is +0
+      const float x = s[4 * nt + e];
+      const float xm = (BF16_SCORES && !NO_MAX) ? round_bf16(x - mrow[e >> 1]) : x - mrow[e >> 1];
+      p[e] = fast_exp2(xm);
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(p[0], p[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2], p[3]);
+    if (SUM_ROUNDED) {
+      l_r[0] += __low2float(lo) + __high2float(lo);
+      l_r[1] += __low2float(hi) + __high2float(hi);
+    } else {
+      l_r[0] += p[0] + p[1];
+      l_r[1] += p[2] + p[3];
+    }
+    pa[nt >> 1][(nt & 1) * 2 + 0] = bf16_bits(lo);
+    pa[nt >> 1][(nt & 1) * 2 + 1] = bf16_bits(hi);
+  }
+}
+
+// Normalise and store this thread's outputs: rows row0 + g and row0 + g + 8,
+// columns col0 + 8*nt + 2*tig (+1), nt < NACC / 4.
+template <int NACC>
+__device__ __forceinline__ void store_rows(const float (&acc)[NACC], float (&l_r)[2], __nv_bfloat16* ob,
+                                           long long rs, int row0, int col0, int Lq, int d, int g, int tig) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
   const float inv0 = 1.f / l_r[0], inv1 = 1.f / l_r[1];
-  const int qa = q0 + r0 + g, qc = qa + 8;
+  const int qa = row0 + g, qc = qa + 8;
 #pragma unroll
-  for (int nt = 0; nt < DV / 8; ++nt) {
-    const int col = dv0 + nt * 8 + tig * 2;
+  for (int nt = 0; nt < NACC / 4; ++nt) {
+    const int col = col0 + nt * 8 + tig * 2;
     if (col >= d) continue;
     if (qa < Lq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qa * rs + col) =
-          __floats2bfloat162_rn(acc[nt][0] * inv0, acc[nt][1] * inv0);
+          __floats2bfloat162_rn(acc[4 * nt + 0] * inv0, acc[4 * nt + 1] * inv0);
     if (qc < Lq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qc * rs + col) =
-          __floats2bfloat162_rn(acc[nt][2] * inv1, acc[nt][3] * inv1);
+          __floats2bfloat162_rn(acc[4 * nt + 2] * inv1, acc[4 * nt + 3] * inv1);
+  }
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// O += P V for one warpgroup: KEYS/16 wgmma of k16, V MN-major with 64-column
+// blocks `block_bytes` apart.
+template <int DV, int KEYS>
+__device__ __forceinline__ void pv_products(float (&acc)[DV / 2], const uint32_t (&pa)[KEYS / 16][4],
+                                            const unsigned char* v_tile, uint32_t block_bytes) {
+  uint64_t dv = make_desc(v_tile, block_bytes, 1024);
+  opaque(dv);
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
+    if constexpr (DV == 64) wgmma_rs_n64(acc, pa[kk], dv + kk * 128);
+    else if constexpr (DV == 128) wgmma_rs_n128(acc, pa[kk], dv + kk * 128);
+    else wgmma_rs_n256(acc, pa[kk], dv + kk * 128);
+  }
+}
+
+// ---- narrow heads: d < 128 ------------------------------------------------------
+
+constexpr int N_STAGES = 3;
+
+// Consumer warpgroups of 64 query rows.  Two, unless the scores are
+// rounded to bf16: those two extra conversions per score make the softmax
+// longer than the products, and a third warpgroup keeps the tensor cores
+// fed (measured: K1 5.4 ms with two, 6.1 with three; K8 10.7 with two, 9.5
+// with three, NVIDIA H100 80GB HBM3, 700 W).
+template <bool BF16_SCORES>
+__host__ __device__ constexpr int narrow_consumers() {
+  return BF16_SCORES ? 3 : 2;
+}
+
+// keys per tile: the score accumulator is NK / 2 registers a thread
+template <int DP>
+__host__ __device__ constexpr int narrow_keys() {
+  return DP == 64 ? 128 : 64;
+}
+
+template <int DP, int NCW>
+constexpr int narrow_smem_bytes() {
+  return DP / 64 * (64 * NCW + 2 * N_STAGES * narrow_keys<DP>()) * 128 + (1 + 3 * N_STAGES) * 8 + 1024;
+}
+
+template <int DP, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES>
+__global__ void __launch_bounds__(128 * (narrow_consumers<BF16_SCORES>() + 1), 1)
+flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
+                 int d, float scale_log2) {
+  constexpr int NCW = narrow_consumers<BF16_SCORES>();
+  constexpr int NQ = 64 * NCW;  // query rows per CTA
+  constexpr int NK = narrow_keys<DP>();
+  constexpr int CB = DP / 64;         // 64-column blocks of a row
+  constexpr int Q_BLOCK = NQ * 128;   // bytes of one column block of the Q tile
+  constexpr int KV_BLOCK = NK * 128;  // ... of a K or V tile
+  constexpr int KV_TILE = CB * KV_BLOCK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sK = sQ + CB * Q_BLOCK;
+  unsigned char* sV = sK + N_STAGES * KV_TILE;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + N_STAGES * KV_TILE);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + N_STAGES;
+  uint64_t* empty = full_v + N_STAGES;
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * NQ;
+  const int n_kt = (Lk + NK - 1) / NK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < N_STAGES; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 128 * NCW);  // every consumer thread releases the stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, CB * Q_BLOCK);
+      for (int c = 0; c < CB; ++c) tma_load_4d(sQ + c * Q_BLOCK, &tq, full_q, 64 * c, h, q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % N_STAGES;
+        if (j >= N_STAGES) mbar_wait(empty + s, ((j / N_STAGES) + 1) & 1);
+        mbar_expect_tx(full_k + s, KV_TILE);
+        for (int c = 0; c < CB; ++c)
+          tma_load_4d(sK + s * KV_TILE + c * KV_BLOCK, &tk, full_k + s, 64 * c, h, j * NK, b);
+        mbar_expect_tx(full_v + s, KV_TILE);
+        for (int c = 0; c < CB; ++c)
+          tma_load_4d(sV + s * KV_TILE + c * KV_BLOCK, &tv, full_v + s, 64 * c, h, j * NK, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns query rows q0 + 64*cw ... + 63
+    setmaxnreg_inc<NCW == 2 ? 240 : 160>();
+    const int cw = wg - 1;
+    const int ct = threadIdx.x - 128 * wg;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, tig = lane % 4;
+    unsigned char* sQw = sQ + cw * 64 * 128;
+
+    mbar_wait(full_q, 0);
+    if (PRESCALE_Q) {
+      // q * scale * log2(e) rounded to bf16, in place: the swizzle moves
+      // whole 16-byte chunks, so an elementwise pass needs no addresses
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        uint4* rows = reinterpret_cast<uint4*>(sQw + c * Q_BLOCK);
+#pragma unroll
+        for (int i = ct; i < 64 * 8; i += 128) {
+          uint4 val = rows[i];
+          __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(hv[e]);
+            hv[e] = __floats2bfloat162_rn(f.x * scale_log2, f.y * scale_log2);
+          }
+          rows[i] = val;
+        }
+      }
+      fence_proxy_async();
+      bar_sync(1 + NCW + cw, 128);  // ids 1..NCW are the turns
+    }
+
+    float acc[DP / 2];
+    float sacc[NK / 2];
+    uint32_t pa[NK / 16][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NK / 16; ++i) pa[i][0] = pa[i][1] = pa[i][2] = pa[i][3] = 0u;
+    float m_r[2] = {MASKED, MASKED};  // running max of rows g and g+8 (unused if NO_MAX)
+    float l_r[2] = {0.f, 0.f};        // this thread's partial row sums
+
+    // Turns on the tensor cores, round robin: consumer cw waits on barrier
+    // 1 + cw and hands over on the next one's; consumer 0 goes first.  Turn
+    // 0 issues Q K_0^T, turn j the previous tile's P V and Q K_j^T, turn
+    // n_kt the last P V.  The first and last turns are peeled so that no
+    // wgmma sits under a runtime branch (ptxas would serialize them).
+    const int bar_mine = 1 + cw, bar_next = 1 + (cw + 1) % NCW;
+    auto turn_begin = [&]() {
+      bar_sync(bar_mine, 256);
+      fence_regs(acc);
+      fence_regs(sacc);
+      fence_regs(pa);
+      wgmma_fence();
+    };
+    auto turn_end = [&](bool last) {
+      wgmma_commit();
+      if (!(cw == NCW - 1 && last)) bar_arrive(bar_next, 256);  // consumer 0 has no turn after the last
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(sacc);
+      fence_regs(pa);
+    };
+    auto qk_products = [&](int s) {
+      uint64_t dq = make_desc(sQw, 16, 1024), dk = make_desc(sK + s * KV_TILE, 16, 1024);
+      opaque(dq);  // computed here, not hoisted out of the loop into registers
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = ((kk / 4) * Q_BLOCK + (kk % 4) * 32) >> 4;
+        const int koff = ((kk / 4) * KV_BLOCK + (kk % 4) * 32) >> 4;
+        if constexpr (NK == 128) wgmma_ss_n128(sacc, dq + off, dk + koff, kk > 0);
+        else wgmma_ss_n64(sacc, dq + off, dk + koff, kk > 0);
+      }
+    };
+    auto softmax = [&](int j) {
+      softmax_tile<NK / 8, DP / 2, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(sacc, acc, pa, m_r, l_r, j * NK,
+                                                                                  Lk, tig, scale_log2);
+    };
+
+    if (cw == NCW - 1) bar_arrive(1, 256);
+    mbar_wait(full_k, 0);
+    turn_begin();
+    qk_products(0);
+    turn_end(false);
+    softmax(0);
+    for (int j = 1; j < n_kt; ++j) {
+      const int s = j % N_STAGES;                  // stage of tile j
+      const int sp = (j + N_STAGES - 1) % N_STAGES;  // stage of tile j - 1
+      mbar_wait(full_k + s, (j / N_STAGES) & 1);
+      mbar_wait(full_v + sp, ((j - 1) / N_STAGES) & 1);
+      turn_begin();
+      pv_products<DP, NK>(acc, pa, sV + sp * KV_TILE, KV_BLOCK);
+      qk_products(s);
+      turn_end(false);
+      mbar_arrive(empty + sp);
+      softmax(j);
+    }
+    const int sl = (n_kt - 1) % N_STAGES;
+    mbar_wait(full_v + sl, ((n_kt - 1) / N_STAGES) & 1);
+    turn_begin();
+    pv_products<DP, NK>(acc, pa, sV + sl * KV_TILE, KV_BLOCK);
+    turn_end(true);  // the last tile's stage is not released: nothing waits for it
+
+    const long long rs = (long long)H * d;
+    __nv_bfloat16* ob = o + (long long)b * Lq * rs + (long long)h * d;
+    store_rows<DP / 2>(acc, l_r, ob, rs, q0 + cw * 64 + warp * 16, 0, Lq, d, g, tig);
+  }
+}
+
+// ---- wide heads: d <= 512 -------------------------------------------------------
+
+constexpr int WQ = 64;  // query rows per CTA
+constexpr int WK = 32;  // keys per tile
+constexpr int W_STAGES = 2;
+
+template <int DP, int NCWG>
+constexpr int wide_smem_bytes() {
+  return DP / 64 * (WQ + 2 * W_STAGES * WK) * 128 + (NCWG == 2 ? 2 * 2 * 16 * 128 * 4 : 0) +
+         (1 + 3 * W_STAGES) * 8 + 1024;
+}
+
+// NCWG consumer warpgroups; each owns DP / NCWG output columns and the same
+// share of the q.k contraction.
+template <int DP, int NCWG>
+__global__ void __launch_bounds__(128 * (NCWG + 1), 1)
+flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
+               int d, float scale_log2) {
+  constexpr int CB = DP / 64;
+  constexpr int DV = DP / NCWG;  // output columns (and contraction depth) per consumer
+  constexpr int CBV = DV / 64;
+  constexpr int Q_BLOCK = WQ * 128;
+  constexpr int KV_BLOCK = WK * 128;
+  constexpr int KV_TILE = CB * KV_BLOCK;
+  constexpr int X_SLOT = 16 * 128;  // floats of one warpgroup's partial score tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sK = sQ + CB * Q_BLOCK;
+  unsigned char* sV = sK + W_STAGES * KV_TILE;
+  float* xbuf = reinterpret_cast<float*>(sV + W_STAGES * KV_TILE);  // [2 tiles][2 warpgroups][X_SLOT]
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + W_STAGES * KV_TILE + (NCWG == 2 ? 4 * X_SLOT * 4 : 0));
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + W_STAGES;
+  uint64_t* empty = full_v + W_STAGES;
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * WQ;
+  const int n_kt = (Lk + WK - 1) / WK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 128 * NCWG);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    if constexpr (NCWG == 2) setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, CB * Q_BLOCK);
+      for (int c = 0; c < CB; ++c) tma_load_4d(sQ + c * Q_BLOCK, &tq, full_q, 64 * c, h, q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % W_STAGES;
+        if (j >= W_STAGES) mbar_wait(empty + s, ((j / W_STAGES) + 1) & 1);
+        mbar_expect_tx(full_k + s, KV_TILE);
+        for (int c = 0; c < CB; ++c)
+          tma_load_4d(sK + s * KV_TILE + c * KV_BLOCK, &tk, full_k + s, 64 * c, h, j * WK, b);
+        mbar_expect_tx(full_v + s, KV_TILE);
+        for (int c = 0; c < CB; ++c)
+          tma_load_4d(sV + s * KV_TILE + c * KV_BLOCK, &tv, full_v + s, 64 * c, h, j * WK, b);
+      }
+    }
+  } else {
+    if constexpr (NCWG == 2) setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int ct = threadIdx.x - 128 * wg;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, tig = lane % 4;
+
+    float acc[DV / 2];
+    float sacc[WK / 2];
+    uint32_t pa[WK / 16][4];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < WK / 2; ++i) sacc[i] = 0.f;
+    float m_r[2] = {MASKED, MASKED};
+    float l_r[2] = {0.f, 0.f};
+
+    mbar_wait(full_q, 0);
+    for (int j = 0; j < n_kt; ++j) {
+      const int s = j % W_STAGES;
+      mbar_wait(full_k + s, (j / W_STAGES) & 1);
+      // this warpgroup's share of S = Q K^T: columns cw*DV ... + DV - 1 of q and k
+      fence_regs(sacc);
+      wgmma_fence();
+      const uint64_t dq = make_desc(sQ + cw * CBV * Q_BLOCK, 16, 1024);
+      const uint64_t dk = make_desc(sK + s * KV_TILE + cw * CBV * KV_BLOCK, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        wgmma_ss_n32(sacc, dq + (((kk / 4) * Q_BLOCK + (kk % 4) * 32) >> 4),
+                     dk + (((kk / 4) * KV_BLOCK + (kk % 4) * 32) >> 4), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      if constexpr (NCWG == 2) {
+        // exchange the partial tiles; own + other is the same fp32 sum in
+        // both warpgroups, so both see the same scores, m and l
+        float* mine = xbuf + ((j & 1) * 2 + cw) * X_SLOT;
+        const float* other = xbuf + ((j & 1) * 2 + 1 - cw) * X_SLOT;
+#pragma unroll
+        for (int i = 0; i < WK / 2; ++i) mine[i * 128 + ct] = sacc[i];
+        bar_sync(1, 256);
+#pragma unroll
+        for (int i = 0; i < WK / 2; ++i) sacc[i] = sacc[i] + other[i * 128 + ct];
+      }
+      softmax_tile<WK / 8, DV / 2, false, false, false, false>(sacc, acc, pa, m_r, l_r, j * WK, Lk, tig,
+                                                               scale_log2);
+      mbar_wait(full_v + s, (j / W_STAGES) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      pv_products<DV, WK>(acc, pa, sV + s * KV_TILE + cw * CBV * KV_BLOCK, KV_BLOCK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(empty + s);
+    }
+
+    const long long rs = (long long)H * d;
+    __nv_bfloat16* ob = o + (long long)b * Lq * rs + (long long)h * d;
+    store_rows<DV / 2>(acc, l_r, ob, rs, q0 + warp * 16, cw * DV, Lq, d, g, tig);
   }
 }
 
@@ -371,17 +611,42 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
 
 // ---- launchers ----------------------------------------------------------------
 
-template <int DQK, int DV, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q = false, bool BF16_SCORES = false>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
-                int d, float scale_log2, cudaStream_t stream) {
-  auto kern = flash_fwd_bf16<DQK, DV, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>;
-  constexpr int smem = bf16_smem_bytes<DQK, DV>();
+// The three tensor maps of a bf16 launch: q in boxes of q_rows, k and v of kv_rows.
+bool encode_qkv(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int B, int H, int Lq,
+                int Lk, int d, int q_rows, int kv_rows) {
+  return hopper_host::encode_bf16_bhld(&maps[0], q, B, Lq, H, d, q_rows) &&
+         hopper_host::encode_bf16_bhld(&maps[1], k, B, Lk, H, d, kv_rows) &&
+         hopper_host::encode_bf16_bhld(&maps[2], v, B, Lk, H, d, kv_rows);
+}
+
+template <int DP, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES>
+int launch_narrow_dp(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk, int d,
+                     float scale_log2, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  constexpr int ncw = narrow_consumers<BF16_SCORES>(), nq = 64 * ncw;
+  if (!encode_qkv(maps, q, k, v, B, H, Lq, Lk, d, nq, narrow_keys<DP>())) return ERR_TENSOR_MAP;
+  auto kern = flash_fwd_narrow<DP, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>;
+  constexpr int smem = narrow_smem_bytes<DP, ncw>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + BQ - 1) / BQ, B * H, (d + DV - 1) / DV);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, Lq, Lk, d, scale_log2);
+  const dim3 grid((Lq + nq - 1) / nq, B * H);
+  kern<<<grid, 128 * (ncw + 1), smem, stream>>>(maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, Lq,
+                                               Lk, d, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, int NCWG>
+int launch_wide_dp(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk, int d,
+                   float scale_log2, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  if (!encode_qkv(maps, q, k, v, B, H, Lq, Lk, d, WQ, WK)) return ERR_TENSOR_MAP;
+  auto kern = flash_fwd_wide<DP, NCWG>;
+  constexpr int smem = wide_smem_bytes<DP, NCWG>();
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Lq + WQ - 1) / WQ, B * H);
+  kern<<<grid, 128 * (NCWG + 1), smem, stream>>>(maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H,
+                                                 Lq, Lk, d, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -408,22 +673,21 @@ int launch_f32_any(const void* q, const void* k, const void* v, void* o, int B, 
   return launch_f32<16, NO_MAX>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
 }
 
-constexpr int ERR_UNSUPPORTED = -1;
-
 // A narrow bf16 head (d % 8 == 0, d < 128): 64 or 128 padded columns.
 template <bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q = false, bool BF16_SCORES = false>
 int launch_narrow(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
                   int d, float sl, cudaStream_t st) {
   if (d % 8 != 0 || d >= 128) return ERR_UNSUPPORTED;
   if (d <= 64)
-    return launch_bf16<64, 64, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
-  return launch_bf16<128, 128, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
+    return launch_narrow_dp<64, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
+  return launch_narrow_dp<128, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
 }
 
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32.  Returns cudaGetLastError() after the launch,
-// or -1 for a shape the kernel does not take (the wrapper checks first).
+// -1 for a shape the kernel does not take (the wrapper checks first), or
+// -2 if the driver refuses a tensor map.
 extern "C" int rd_flash_nomax(int dtype, const void* q, const void* k, const void* v, void* o,
                               int B, int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -452,9 +716,9 @@ extern "C" int rd_flash_wide(int dtype, const void* q, const void* k, const void
     return launch_f32_any<false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
   }
   if (d % 8 != 0 || d > 512) return ERR_UNSUPPORTED;
-  if (d <= 128) return launch_bf16<128, 128, false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  if (d <= 256) return launch_bf16<256, 128, false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  return launch_bf16<512, 128, false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  if (d <= 128) return launch_wide_dp<128, 1>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  if (d <= 256) return launch_wide_dp<256, 1>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  return launch_wide_dp<512, 2>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
 }
 
 // K6: running max, fp32 normaliser (the sum of unrounded P), narrow heads.

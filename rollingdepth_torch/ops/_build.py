@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``.  The
-library's file name carries a hash of the source, so a changed source is
-rebuilt and an unchanged one is reused.  Libraries go to
+library's file name carries a hash of the source, of every ``csrc/*.cuh``
+header and of the nvcc flags, so a changed source or header is rebuilt and
+an unchanged tree is reused.  Libraries go to
 ``rollingdepth_torch/build/`` (listed in ``.gitignore``), or to
 ``$ROLLINGDEPTH_TORCH_BUILD`` when that is set.  ``build_all`` starts one
 ``nvcc`` per source, all at once.
@@ -49,9 +50,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(build_dir(), f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            h.update(b"\0" + fname.encode() + b"\0" + f.read())
+    return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

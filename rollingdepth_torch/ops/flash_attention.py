@@ -108,8 +108,8 @@ def _launch(symbol: str, q, k, v, scale: Optional[float]) -> torch.Tensor:
         err = fn(0 if q.dtype == torch.bfloat16 else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), b, h, lq, lk, d, sl, stream)
     if err != 0:
-        raise RuntimeError(f"{symbol} failed: {'unsupported shape' if err == -1 else f'CUDA error {err}'} "
-                           f"at q{tuple(q.shape)} L_k={lk} {q.dtype}")
+        why = {-1: "unsupported shape", -2: "the driver refused a TMA tensor map"}.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"{symbol} failed: {why} at q{tuple(q.shape)} L_k={lk} {q.dtype}")
     return o
 
 

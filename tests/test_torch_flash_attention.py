@@ -100,13 +100,22 @@ def _cuda():
     ("wide", 128), ("wide", 160), ("wide", 256), ("wide", 320),
 ])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("lq,lk", [(300, 1537), (1024, 1000)])
-def test_cuda_kernel_matches_plain(name, d, dtype, lq, lk):
+@pytest.mark.parametrize("b,lq,lk", [
+    (2, 300, 1537), (2, 1024, 1000),
+    # the edges of the bf16 tiles: narrow 128 query rows x 128 keys (64
+    # for d > 64), wide 64 x 32; L at 1, BK - 1, BK + 1 and 2 * BQ + 1
+    (2, 1, 129), (2, 127, 1), (2, 129, 127), (2, 257, 65), (2, 385, 63),
+    (2, 1, 33), (2, 31, 1), (2, 33, 31), (2, 129, 33),
+    # ragged L (chip_smoke.py's wide case), and three batches: a TMA box
+    # must not cross into the next batch
+    (2, 1001, 999), (3, 1001, 999),
+])
+def test_cuda_kernel_matches_plain(name, d, dtype, b, lq, lk):
     """bf16: 2e-2 of the output scale (P and the output rounded to bf16,
     exp2 by the SFU's approximation); fp32: 1e-4."""
     dev = _cuda()
     h = 1 if name == "wide" else 4
-    q, k, v = (torch.from_numpy(x).to(dev, getattr(torch, dtype)) for x in _qkv(2, lq, lk, h, d, seed=5))
+    q, k, v = (torch.from_numpy(x).to(dev, getattr(torch, dtype)) for x in _qkv(b, lq, lk, h, d, seed=5))
     wrapper = getattr(fa, f"flash_attention_{name}")
     before = wrapper.launches
     got = wrapper(q, k, v)

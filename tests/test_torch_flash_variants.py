@@ -163,13 +163,20 @@ def _cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("lq,lk,d", [(300, 1537, 64), (1024, 1000, 64), (513, 257, 40), (200, 333, 120)])
-def test_cuda_kernel_matches_plain(name, dtype, lq, lk, d):
+@pytest.mark.parametrize("b,lq,lk,d", [
+    (2, 300, 1537, 64), (2, 1024, 1000, 64), (2, 513, 257, 40), (2, 200, 333, 120),
+    # the edges of the tiles: 128 query rows (192 for K8 and K9 with
+    # bf16_exp) x 128 keys (64 for d > 64); L at 1, BK - 1, BK + 1, 2 * BQ + 1
+    (2, 1, 129, 64), (2, 127, 1, 64), (2, 129, 127, 64), (2, 257, 65, 80), (2, 385, 63, 120),
+    # three batches with ragged L: a TMA box must not cross into the next batch
+    (3, 1001, 999, 64),
+])
+def test_cuda_kernel_matches_plain(name, dtype, b, lq, lk, d):
     """bf16: 2e-2 of the output scale (P, scores and the output rounded to
     bf16, exp2 by the SFU's approximation); fp32: 1e-4."""
     dev = _cuda()
     wrapper = PALLAS[name][0]
-    q, k, v = (torch.from_numpy(x).to(dev, getattr(torch, dtype)) for x in _qkv(lq, lk, seed=5, b=2, h=3, d=d))
+    q, k, v = (torch.from_numpy(x).to(dev, getattr(torch, dtype)) for x in _qkv(lq, lk, seed=5, b=b, h=3, d=d))
     if dtype == "float32" and name in ("bf16", "nomax_bf16_exp"):
         with pytest.raises(ValueError, match="bf16 only"):
             wrapper(q, k, v)
