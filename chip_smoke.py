@@ -13,10 +13,12 @@ Phases, each of which must pass or the script exits non-zero:
            the plain version's time, one SDPA call's time as a yardstick
            (the port never calls SDPA) and the card's data-sheet bound;
    conv    the 3x3 conv op (K4, K5; on no model path): both wrappers at the
-           VAE decoder's widths (bf16) and a ragged fp32 case with the
-           launch counts from 0, then each against its plain version, with
-           its time, the plain time, one cuDNN ``F.conv2d`` call's time as
-           a yardstick and the bound;
+           VAE decoder's widths (bf16), two ragged bf16 cases and a ragged
+           fp32 case with the launch counts from 0, then each against its
+           plain version (in bf16 also the mean bound, against the plain
+           version without one (tap, 64-channel chunk)), with its time, the
+           plain time, one cuDNN ``F.conv2d`` call's time as a yardstick,
+           the bound and the bytes its tiles load through L2;
    variants the flash-attention sweep (K6-K10; on no model path):
            ``tools/bench_flash_variants.sweep`` at [2|8, 15552, 5, 64] bf16
            with the launch counts from 0, then each variant against its
@@ -100,11 +102,12 @@ def conv_bound_ms(n, h, w, cin, cout, itemsize) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-# bf16 attention: the mean |error| against the plain version, as a fraction
+# bf16 kernels: the mean |error| against the plain version, as a fraction
 # of the mean |output|.  The max bound (2e-2 of the output's scale) alone
-# would pass a kernel that skipped or repeated one key tile at the main
-# shape, which moves outputs by about 1e-3 against a max tolerance of about
-# 3e-3; rounding alone keeps the mean error far below this bound (PERF.md).
+# would pass an attention kernel that skipped or repeated one key tile at
+# the main shape, which moves outputs by about 1e-3 against a max tolerance
+# of about 3e-3; rounding alone keeps the mean error far below this bound
+# (PERF.md).
 MEAN_TOL_BF16 = 1e-2
 DROPPED_KEYS = 32  # the smallest key tile of the attention kernels
 
@@ -115,13 +118,22 @@ def drop_key_tile(torch, k, v) -> tuple:
     return tuple(torch.cat([t[:, :a], t[:, a + DROPPED_KEYS:]], 1) for t in (k, v))
 
 
+def drop_tap_chunk(torch, w):
+    """w [3, 3, Cin, Cout] without tap (0, 0)'s last 64-channel chunk of
+    input channels (the conv kernels' unit of work)."""
+    c0 = (w.shape[2] - 1) // 64 * 64
+    out = w.clone()
+    out[0, 0, c0:c0 + 64] = 0
+    return out
+
+
 def held_to_plain(what, got, ref, bf16, plain_dropped=None) -> dict:
     """Raise unless ``got`` is finite and within the bounds of ``ref``: max
     |error| within 2e-2 (bf16) or 1e-4 (fp32) of the output's scale and, in
     bf16, mean |error| within MEAN_TOL_BF16 of the mean |output|.  In bf16,
-    ``plain_dropped()`` is the plain version without one key tile
-    (``drop_key_tile``): its mean shift must exceed the mean bound, so that
-    a kernel that skipped a tile would fail."""
+    ``plain_dropped()`` is the plain version without one tile of work
+    (``drop_key_tile``, ``drop_tap_chunk``): its mean shift must exceed the
+    mean bound, so that a kernel that skipped a tile would fail."""
     diff = (got.float() - ref.float()).abs()
     err, tol = diff.max().item(), (2e-2 if bf16 else 1e-4) * ref.float().abs().max().item()
     if not err <= tol or not got.isfinite().all():
@@ -137,6 +149,7 @@ def held_to_plain(what, got, ref, bf16, plain_dropped=None) -> dict:
 
 
 CONV_SHAPES = ((4, 432, 768, 128, 128), (4, 216, 384, 256, 256), (4, 108, 192, 512, 512))
+CONV_RAGGED_BF16 = ((2, 37, 53, 136, 200), (1, 5, 65, 72, 136))
 
 
 def conv_phase(torch, conv):
@@ -146,7 +159,8 @@ def conv_phase(torch, conv):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = []  # (N, H, W, Cin, Cout), x, w, b
-    for shape, dtype in [(s, torch.bfloat16) for s in CONV_SHAPES] + [((2, 37, 53, 13, 21), torch.float32)]:
+    for shape, dtype in ([(s, torch.bfloat16) for s in CONV_SHAPES + CONV_RAGGED_BF16]
+                         + [((2, 37, 53, 13, 21), torch.float32)]):
         n, h, w, cin, cout = shape
         x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dtype)
         wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") * (9 * cin) ** -0.5).to(dtype)
@@ -166,12 +180,10 @@ def conv_phase(torch, conv):
     rows = {}
     for shape, x, wt, b in cases:
         n, h, w, cin, cout = shape
+        bf16 = x.dtype == torch.bfloat16
         plain = lambda: conv.conv3x3_reference(x, wt, b)  # noqa: E731
         ref = plain()
-        scale = ref.float().abs().max().item()
-        # bf16: one rounding of the output plus the bias add, 2e-2 of the
-        # output's scale; fp32 (TF32 off): 1e-4 of it
-        tol = (2e-2 if x.dtype == torch.bfloat16 else 1e-4) * scale
+        dropped = conv.conv3x3_reference(x, drop_tap_chunk(torch, wt), b) if bf16 else None
         plain_ms = cuda_ms(plain, 3, warmup=1)
         x_nchw = x.permute(0, 3, 1, 2)  # NHWC memory: channels_last
         w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -180,16 +192,18 @@ def conv_phase(torch, conv):
         for fn in conv.KERNELS:
             got = fn(x, wt, b)
             torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            if not err <= tol or not torch.isfinite(got).all():
-                raise AssertionError(f"{fn.__name__} {shape} {x.dtype}: max err {err} > {tol}")
-            row = {"name": fn.__name__, "shape": list(shape), "dtype": str(x.dtype).split(".")[-1],
-                   "max_abs_err": err, "tol": tol, "ms": cuda_ms(lambda: fn(x, wt, b), 10),
-                   "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            # bf16: one rounding of the output plus the bias add, the bf16
+            # bounds; fp32 (TF32 off): 1e-4 of the output's scale
+            errs = held_to_plain(f"{fn.__name__} {shape} {x.dtype}", got, ref, bf16, lambda: dropped)
+            row = {"name": fn.__name__, "shape": list(shape), "dtype": str(x.dtype).split(".")[-1], **errs,
+                   "ms": cuda_ms(lambda: fn(x, wt, b), 10), "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            if bf16:
+                row["l2_bytes"] = conv.bf16_tma_bytes(fn, *shape)
             log(row)
             rows.setdefault(fn.__name__, row)
             del got
-        del ref
+        del ref, dropped
     del cases
     return rows, launches
 
@@ -436,10 +450,10 @@ def main() -> int:
     flash_src, conv_src = "rollingdepth_torch/csrc/flash_attn.cu", "rollingdepth_torch/csrc/conv3x3.cu"
 
     def entry(name, tpu, source, replaces_at, launched, r, on_main_path, **extra):
-        if source == flash_src:  # the attention kernels: TMA loads, wgmma, warp specialisation
-            extra["design"] = "tma+wgmma"
+        # every bf16 kernel: TMA tile loads and wgmma on the tensor cores
         return {"name": name, "tpu_kernel": tpu, "route": "cuda", "source": source, "replaces": replaces_at,
-                "launches": launched, "on_main_path": on_main_path, "max_abs_err": r["max_abs_err"],
+                "design": "tma+wgmma", "launches": launched, "on_main_path": on_main_path,
+                "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["shape"], **extra}
 

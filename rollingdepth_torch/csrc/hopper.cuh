@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for the attention kernels of flash_attn.cu:
-// TMA tile loads with mbarrier completion, warpgroup matrix multiplies
-// (wgmma) on 128-byte-swizzled shared-memory tiles, named barriers and
-// register reallocation between warpgroups.  Plain PTX, no library.
+// Hopper (sm_90a) building blocks for the kernels of flash_attn.cu and
+// conv3x3.cu: TMA tile loads with mbarrier completion, warpgroup matrix
+// multiplies (wgmma) on 128-byte-swizzled shared-memory tiles, ldmatrix,
+// named barriers and register reallocation between warpgroups.  Plain PTX,
+// no library.
 //
 // Shared-memory tiles are [rows][64] bf16 blocks of 128-byte rows, written by
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B and read by wgmma through descriptors
@@ -60,7 +61,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA ----------------------------------------------------------------------
 
-// Copy one box of a 4-D tensor map to shared memory; completion is counted on `bar`.
+// Copy one box of a 3-D tensor map to shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same for a 4-D tensor map.  Coordinates are signed: elements outside
+// the tensor arrive as zeros.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
@@ -73,6 +85,27 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 // Generic-proxy writes to shared memory made visible to wgmma and TMA.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane i gives the address of
+// row i % 8 of matrix i / 8.  With lanes 0-15 on rows 0-15 at column k and
+// lanes 16-31 on the same rows at column k + 8, r is the A fragment of a
+// 16 x 16 tile for mma.sync m16n8k16 and for wgmma with A in registers.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// The inverse of ldmatrix_x4: four 8x8 bf16 matrices to shared memory, lane i
+// giving the address of row i % 8 of matrix i / 8; r[k] holds this thread's
+// two elements of matrix k (row lane / 4, columns 2 (lane % 4) and + 1), the
+// layout of an mma or wgmma accumulator fragment.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r[0]),
+               "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
 // ---- named barriers and register reallocation ----------------------------------
@@ -298,21 +331,30 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A bf16 tensor map of `rank` dimensions (innermost first, strides in
+// bytes for dimensions 1 and up, each a multiple of 16) with 128-byte
+// swizzle: box[0] must be 64 elements, one 128-byte row.  Elements outside
+// the tensor read as zero.  Returns false if the CUDA driver refuses the map.
+inline bool encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A map over a contiguous bf16 [B, L, H, d] tensor seen as 4-D (d, H, L, B),
 // innermost first, with boxes of 64 columns x 1 head x `rows` rows x 1
 // batch.  Columns past d and rows past L read as zero, and a box never
 // crosses into the next head or batch.  d % 8 == 0 keeps every stride a
-// multiple of 16 bytes.  Returns false if the driver refuses the map.
+// multiple of 16 bytes.
 inline bool encode_bf16_bhld(CUtensorMap* map, const void* base, int B, int L, int H, int d, int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)H * d * 2, (cuuint64_t)L * H * d * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16(map, base, 4, dims, strides, box);
 }
 
 }  // namespace hopper_host

@@ -1,9 +1,12 @@
 """3x3 stride-1 SAME convolution: two hand-written CUDA kernels and their plain version.
 
-| wrapper              | CUDA kernel (csrc/conv3x3.cu) | replaces (rollingdepth_tpu/ops/conv3x3.py) |
-| -------------------- | ----------------------------- | ------------------------------------------ |
-| ``conv3x3_same``     | ``rd_conv3x3``, one stage      | ``_conv_kernel`` (K4)                      |
-| ``conv3x3_same_db``  | ``rd_conv3x3_db``, 2-stage ring | ``_conv_kernel_db`` (K5)                  |
+| wrapper             | CUDA kernel (csrc/conv3x3.cu)             | replaces (rollingdepth_tpu/ops/conv3x3.py) |
+| ------------------- | ----------------------------------------- | ------------------------------------------ |
+| ``conv3x3_same``    | ``rd_conv3x3``: one stage: load, wait,    | ``_conv_kernel`` (K4)                      |
+|                     | multiply                                  |                                            |
+| ``conv3x3_same_db`` | ``rd_conv3x3_db``: persistent, a producer | ``_conv_kernel_db`` (K5)                   |
+|                     | warpgroup, a ring of 2 halo tiles and 4   |                                            |
+|                     | weight tiles                              |                                            |
 
 Both take x ``[N, H, W, Cin]`` (NHWC), w ``[3, 3, Cin, Cout]`` (HWIO) and an
 optional bias ``[Cout]``, as the JAX functions do, and return
@@ -11,9 +14,11 @@ optional bias ``[Cout]``, as the JAX functions do, and return
 ``interpret`` are TPU tiling knobs and have no counterpart.  On a CUDA
 tensor a wrapper launches its kernel (building it at first use,
 ``ops/_build.py``) or raises; on a CPU tensor it runs ``conv3x3_reference``.
-Each wrapper counts its launches in ``.launches``.  The bf16 kernels load
-16 bytes at a time, so bf16 channel counts must be multiples of 8; fp32
-takes any.
+Each wrapper counts its launches in ``.launches``.  The bf16 kernels read x
+and w through TMA tensor maps, whose strides must be multiples of 16
+bytes, so bf16 channel counts must be multiples of 8; fp32 takes any.
+There is no fallback: a shape a kernel does not take, or a tensor map the
+CUDA driver refuses, raises.
 
 Like the JAX package, the port's models do not call these: the VAE and
 UNet convolutions stay ``F.conv2d``.  What bounds the kernels and what
@@ -29,6 +34,25 @@ import torch
 import torch.nn.functional as F
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+# The bf16 kernels' tiles (csrc/conv3x3.cu): an output tile is TILE_ROWS
+# image rows x TILE_COLS columns x TILE_COUT output channels, and each step
+# of its loop takes one tap of a TILE_CIN-channel chunk.
+TILE_ROWS = {"conv3x3_same": 2, "conv3x3_same_db": 4}
+TILE_COLS, TILE_COUT, TILE_CIN = 64, 128, 64
+
+
+def bf16_tiles(wrapper, n: int, h: int, w: int, cout: int) -> int:
+    """Output tiles of one bf16 call of ``wrapper``."""
+    return n * -(-h // TILE_ROWS[wrapper.__name__]) * -(-w // TILE_COLS) * -(-cout // TILE_COUT)
+
+
+def bf16_tma_bytes(wrapper, n: int, h: int, w: int, cin: int, cout: int) -> int:
+    """Bytes one bf16 call of ``wrapper`` loads through TMA, all from L2:
+    per output tile and input-channel chunk, one haloed (rows + 2) x
+    (columns + 2) tile of x and nine TILE_CIN x TILE_COUT weight tiles."""
+    halo = TILE_CIN * (TILE_COLS + 2) * (TILE_ROWS[wrapper.__name__] + 2) * 2
+    return bf16_tiles(wrapper, n, h, w, cout) * -(-cin // TILE_CIN) * (halo + 9 * TILE_CIN * TILE_COUT * 2)
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -89,8 +113,9 @@ def _launch(symbol: str, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Ten
         err = fn(0 if x.dtype == torch.bfloat16 else 1, x.data_ptr(), w.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, wd, cin, cout, stream)
     if err != 0:
-        raise RuntimeError(f"{symbol} failed: {'unsupported shape' if err == -1 else f'CUDA error {err}'} "
-                           f"at x{tuple(x.shape)} w{tuple(w.shape)} {x.dtype}")
+        why = {-1: "unsupported shape", -2: "the CUDA driver refused a TMA tensor map"}.get(
+            err, f"CUDA error {err}")
+        raise RuntimeError(f"{symbol} failed: {why} at x{tuple(x.shape)} w{tuple(w.shape)} {x.dtype}")
     return out
 
 
@@ -104,13 +129,16 @@ def _conv(wrapper, symbol: str, x, w, b) -> torch.Tensor:
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K4's counterpart: each (tap, channel-chunk) tile loaded synchronously."""
+    """K4's counterpart: each step's halo and weight tiles loaded only after
+    the previous step's products are done (bf16), or each (tap, channel
+    chunk) tile loaded synchronously (fp32)."""
     return _conv(conv3x3_same, "rd_conv3x3", x, w, b)
 
 
 def conv3x3_same_db(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K5's counterpart: a 2-stage cp.async ring, the next tile loading while
-    the current one is multiplied."""
+    """K5's counterpart: the next halo and weight tiles load while the current
+    ones are multiplied (bf16: a TMA ring fed by a producer warpgroup; fp32:
+    a 2-stage cp.async ring)."""
     return _conv(conv3x3_same_db, "rd_conv3x3_db", x, w, b)
 
 

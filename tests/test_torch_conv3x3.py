@@ -4,10 +4,13 @@ On the CPU each wrapper runs ``conv3x3_reference``, the plain version of
 the kernels' arithmetic.  It is held against the JAX Pallas kernels:
 ``conv3x3_same`` with ``interpret=True`` (K4) and ``conv3x3_same_db``
 under ``pltpu.force_tpu_interpret_mode()`` (K5, whose double-buffered DMA
-runs there as written), at ``tests/test_attention.py``'s cases and, for
-K5, at 256 channels (the width where Mosaic miscompiled it).  fp32 on both
-sides, tolerance 1e-4, the one ``tests/test_attention.py`` holds K4 to
-against XLA.
+runs there as written), at ``tests/test_attention.py``'s cases, at a
+shape on the CUDA kernels' tile edges (W = 65 one column past a 64-column
+tile, H = 5 one row past a 4-row tile, Cin = 72 eight channels into a
+second 64-channel chunk, Cout = 136 eight past a 128-channel tile) and,
+for K5, at 256 channels (the width where Mosaic miscompiled it).  fp32 on
+both sides, tolerance 1e-4, the one ``tests/test_attention.py`` holds K4
+to against XLA.
 
 The ``cuda`` tests hold each CUDA kernel against the plain version on the
 card and skip without one.  JAX is imported inside the tests that use it,
@@ -58,7 +61,8 @@ def _torch(t, dtype=torch.float32):
 @pytest.mark.parametrize("shape,cout,bias", [
     ((2, 20, 24, 8), 16, True),   # tests/test_attention.py:111-121
     ((1, 13, 24, 8), 16, False),  # odd height, no bias (:123-129)
-], ids=["bias", "odd_height_no_bias"])
+    ((1, 5, 65, 72), 136, True),  # one past the CUDA kernels' tiles in W, H, Cin and Cout
+], ids=["bias", "odd_height_no_bias", "tile_edge"])
 def test_plain_matches_pallas_interpret(kernel, shape, cout, bias):
     x, w, b = _inputs(*shape, cout, bias, seed=shape[1])
     ref = _pallas(kernel, x, w, b)
@@ -146,6 +150,17 @@ CUDA_SHAPES = [  # ragged H and W throughout; channels 8 to 512
     ((2, 19, 27, 256), 64),
     ((1, 9, 13, 512), 512),
     ((3, 5, 130, 136), 200),  # ragged M and N tiles at once
+    # the bf16 kernels' tile edges: a tile is 64 columns, 2 or 4 rows, 128
+    # output channels, and a chunk 64 input channels; W = H = 1 leaves only
+    # the centre tap inside the image
+    ((3, 1, 1, 8), 8),
+    ((3, 3, 63, 72), 136),
+    ((3, 5, 64, 136), 264),
+    ((3, 1, 65, 512), 8),
+    ((3, 3, 130, 8), 264),
+    ((3, 5, 1, 72), 136),
+    ((3, 1, 64, 136), 8),
+    ((3, 3, 65, 512), 264),
 ]
 
 
@@ -170,3 +185,19 @@ def test_cuda_kernel_matches_plain(kernel, dtype, shape, cout):
         err = (got.float() - plain.float()).abs().max().item()
         scale = plain.float().abs().max().item()
         assert err <= (2e-2 if dtype == "bfloat16" else 1e-4) * scale, (err, scale)
+
+
+@pytest.mark.parametrize("shape", [(4, 432, 768, 128, 128), (4, 216, 384, 256, 256), (4, 108, 192, 512, 512)])
+def test_bf16_tma_bytes_at_the_decoder_widths(shape):
+    """The bytes each bf16 kernel loads through TMA are the same at the VAE
+    decoder's three widths: K5's 256-pixel tiles read the weights half as
+    often as K4's 128-pixel tiles."""
+    assert pc.bf16_tma_bytes(pc.conv3x3_same_db, *shape) == 2_054_356_992
+    assert pc.bf16_tma_bytes(pc.conv3x3_same, *shape) == 3_758_358_528
+
+
+def test_bf16_tiles_cover_ragged_shapes():
+    # 37 rows in 4-row tiles, 53 columns in one 64-column tile, 200 output
+    # channels in two 128-channel tiles
+    assert pc.bf16_tiles(pc.conv3x3_same_db, 2, 37, 53, 200) == 2 * 10 * 1 * 2
+    assert pc.bf16_tiles(pc.conv3x3_same, 1, 5, 65, 136) == 3 * 2 * 2
