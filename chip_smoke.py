@@ -31,15 +31,30 @@ Phases, each of which must pass or the script exits non-zero:
            counts must equal what the chunking implies;
 4. gate    the same pipeline on a 12-frame clip with the max-free gate
            closed, so that narrow heads take the running-max kernel;
-5. check   kernels against the plain attention path: one UNet chunk and
+5. full    the full preset (res 1024, dilations [1, 10, 25], latent merge,
+           10 refine steps over partition windows, bf16) on a synthetic
+           60-frame 576x1024 clip: a short warm-up, then a timed call;
+6. check   kernels against the plain attention path: one UNet chunk and
            one VAE decode chunk at the main path's shapes (bf16), and the
            depth of a 12-frame clip through the whole path in fp32 (the
-           fp32 kernels) with the co-alignment solve cut to 0 steps; the
-           bf16 whole-path drift after the full solve is logged.
+           fp32 kernels) with the co-alignment solves cut to 0 steps: the
+           fast preset, then two refine steps over partition windows after
+           the latent merge and over stride-1 windows after the depth-space
+           merge; the bf16 whole-path drift after the full solve is logged;
+7. paper   the paper preset (fp32, uncapped dilations [1, 10, 25], the
+           depth-space merge of every decoded window, 10 refine steps over
+           stride-1 windows) on 51 frames, the fewest on which dilation 25
+           has a window, at PAPER_RES.
+In main, full and paper the kernel launch counts must equal what the
+pipeline's chunk counts imply (``attention_kernel_launches``), and the
+depth must be finite, of the clip's shape and within [-1, 1].  The card's
+machine has no video decoder, so no phase reads a video: frames are made
+on the card.
 
 Prints the card's name and power limit, a JSON line per measurement, a
 ``{"kernels": [...]}`` line (a row per kernel for each of the TPU kernels
-K1-K10; K9 has two, one per instantiation), and as its last line
+K1-K10; K9 has two, one per instantiation; K1 and K3 have a second row for
+their fp32 instantiation, the paper path's), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,6 +94,54 @@ def depth_drift(a, b) -> dict:
     d = np.abs(a - b)
     return {"mean_abs_err": float(d.mean()), "max_abs_err": float(d.max()),
             "corr": float(np.corrcoef(a.ravel(), b.ravel())[0, 1])}
+
+
+def narrow_kernel_calls(attn, cfg, n: int, h: int, w: int) -> int:
+    """Self-attention calls of one UNet call that take a narrow kernel: the
+    transformer blocks level by level (each latent side halves, rounding up,
+    at every downsampler), at n * h_l * w_l tokens, by the dispatch's auto
+    rule (``ops/attention.py``).  15 at 768x432, 16 at 1024x576, where the
+    mid-block's 432 tokens pass the rule's 256."""
+    sizes = [(h, w)]
+    for _ in cfg.block_out_channels[1:]:
+        h, w = -(-h // 2), -(-w // 2)
+        sizes.append((h, w))
+    bottom = len(sizes) - 1
+    blocks = [(i, cfg.layers_per_block) for i, kind in enumerate(cfg.down_block_types)
+              if kind == "CrossAttnDownBlock2D"] + [(bottom, 1)]
+    blocks += [(bottom - i, cfg.layers_per_block + 1) for i, kind in enumerate(cfg.up_block_types)
+               if kind == "CrossAttnUpBlock2D"]
+    calls = 0
+    for level, count in blocks:
+        tokens = n * sizes[level][0] * sizes[level][1]
+        d = cfg.block_out_channels[level] // cfg.heads_at(level)
+        if attn.auto_selects_kernel(True, tokens, tokens, d) and d < 128:
+            calls += count
+    return calls
+
+
+def attention_kernel_launches(attn, pipe, chunks, lat_hw, snippet_len: int, refine_len: int, narrow: str) -> dict:
+    """The launches a pipeline call implies from its chunk counts: the
+    narrow kernel ``narrow`` per UNet chunk (snippets and refinement), the
+    wide kernel once per VAE encode and decode chunk (the mid-block's d=512
+    head)."""
+    cfg = pipe.unet.config
+    n_narrow = (narrow_kernel_calls(attn, cfg, snippet_len, *lat_hw) * chunks["unet"]
+                + narrow_kernel_calls(attn, cfg, refine_len, *lat_hw) * chunks.get("refine_unet", 0))
+    want = {"flash_attention_nomax": 0, "flash_attention_max": 0,
+            "flash_attention_wide": chunks["encode"] + chunks["decode"]}
+    want[narrow] = n_narrow
+    return want
+
+
+def check_depth(what, out, shape) -> None:
+    """depth_pred and depth_coaligned: the clip's shape, finite, within [-1, 1]."""
+    for name in ("depth_pred", "depth_coaligned"):
+        d = getattr(out, name)
+        if d.shape != shape:
+            raise AssertionError(f"{what}: {name} shape {d.shape} != {shape}")
+        if not (np.isfinite(d).all() and d.min() >= -1.0001 and d.max() <= 1.0001):
+            raise AssertionError(f"{what}: {name} not finite or outside [-1, 1]")
 
 
 def attention_bound_ms(b, lq, lk, h, d, itemsize) -> tuple:
@@ -264,22 +327,26 @@ def kernel_phase(torch, fa):
     """Each kernel against its plain version; returns the main-shape rows."""
     import torch.nn.functional as F
 
-    cases = [  # (kernel, [B, L_q, H, D], L_k, dtype, main-path shape?)
-        ("nomax", (8, 15552, 5, 64), 15552, torch.bfloat16, True),
-        ("nomax", (8, 1008, 20, 64), 1008, torch.bfloat16, False),
-        ("nomax", (2, 3001, 5, 64), 2999, torch.bfloat16, False),
-        ("nomax", (1, 1000, 5, 64), 1000, torch.float32, False),
-        ("max", (8, 15552, 5, 64), 15552, torch.bfloat16, True),
-        ("max", (8, 1008, 20, 64), 1008, torch.bfloat16, False),
-        ("max", (2, 3001, 5, 64), 2999, torch.bfloat16, False),
-        ("max", (1, 1000, 5, 64), 1000, torch.float32, False),
-        ("wide", (4, 5184, 1, 512), 5184, torch.bfloat16, True),
-        ("wide", (2, 1001, 1, 512), 999, torch.bfloat16, False),
-        ("wide", (1, 1000, 1, 512), 999, torch.float32, False),
+    cases = [  # (kernel, [B, L_q, H, D], L_k, dtype, row of the kernels line)
+        ("nomax", (8, 15552, 5, 64), 15552, torch.bfloat16, "nomax"),
+        ("nomax", (8, 1008, 20, 64), 1008, torch.bfloat16, None),
+        ("nomax", (2, 3001, 5, 64), 2999, torch.bfloat16, None),
+        ("nomax", (1, 1000, 5, 64), 1000, torch.float32, None),
+        ("nomax", (8, 27648, 5, 64), 27648, torch.bfloat16, None),  # the full preset's res 1024
+        ("nomax", (8, 15552, 5, 64), 15552, torch.float32, "nomax_fp32"),  # the paper preset's res 768
+        ("max", (8, 15552, 5, 64), 15552, torch.bfloat16, "max"),
+        ("max", (8, 1008, 20, 64), 1008, torch.bfloat16, None),
+        ("max", (2, 3001, 5, 64), 2999, torch.bfloat16, None),
+        ("max", (1, 1000, 5, 64), 1000, torch.float32, None),
+        ("wide", (4, 5184, 1, 512), 5184, torch.bfloat16, "wide"),
+        ("wide", (2, 1001, 1, 512), 999, torch.bfloat16, None),
+        ("wide", (1, 1000, 1, 512), 999, torch.float32, None),
+        ("wide", (4, 9216, 1, 512), 9216, torch.bfloat16, None),  # res 1024
+        ("wide", (4, 5184, 1, 512), 5184, torch.float32, "wide_fp32"),  # res 768
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, (b, lq, h, d), lk, dtype, main in cases:
+    for name, (b, lq, h, d), lk, dtype, row_key in cases:
         q = torch.randn((b, lq, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, lk, h, d), generator=gen, device="cuda").to(dtype)
         v = torch.randn((b, lk, h, d), generator=gen, device="cuda").to(dtype)
@@ -293,7 +360,7 @@ def kernel_phase(torch, fa):
         # approximation, so the bf16 bounds; fp32: 1e-4 of the output's scale
         errs = held_to_plain(f"{name} {(b, lq, h, d)} L_k={lk} {dtype}", got, ref, dtype == torch.bfloat16,
                              lambda: fa.attention_exp2_reference(q, *drop_key_tile(torch, k, v), **flags))
-        iters = 10 if lq * lk * b * h > 1e9 else 50
+        iters = 50 if lq * lk * b * h <= 1e9 else 10 if dtype == torch.bfloat16 else 3
         ms = cuda_ms(lambda: wrapper(q, k, v), iters)
         plain_ms = cuda_ms(plain, 2 if lq > 4000 else 5, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -303,10 +370,15 @@ def kernel_phase(torch, fa):
                **errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         log(row)
-        if main:
-            rows[name] = row
+        if row_key:
+            rows[row_key] = row
         del q, k, v, got, ref
     return rows
+
+
+FULL_RES = (3, 576, 1024)  # the full preset's res 1024, 16:9
+PAPER_FRAMES = 51  # 3 frames at dilation 25 span 51
+PAPER_RES = (3, 360, 640)  # the paper preset's res 768 cut to 640 (PERF.md section 4)
 
 
 def main() -> int:
@@ -321,7 +393,7 @@ def main() -> int:
     from rollingdepth_torch.ops import flash_attention as fa
     from rollingdepth_torch.ops import flash_variants as fv
     from rollingdepth_torch.tools import bench_flash_variants as bench
-    from rollingdepth_torch.utils.synthetic import FAST_PRESET, random_depth_pipeline
+    from rollingdepth_torch.utils.synthetic import FAST_PRESET, FULL_PRESET, PAPER_PRESET, random_depth_pipeline
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -361,25 +433,21 @@ def main() -> int:
     fast = FAST_PRESET
 
     t0 = time.perf_counter()
-    pipe(frames, **fast)
+    pipe(input_frames=frames, **fast)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
-    out = pipe(frames, verbose=True, **fast)
+    out = pipe(input_frames=frames, verbose=True, **fast)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
     chunks = dict(pipe.last_chunks)
-    depth = out.depth_pred
-    if depth.shape != (n_frames, 1, height, width):
-        raise AssertionError(f"depth_pred shape {depth.shape}")
-    if not (torch.isfinite(torch.from_numpy(depth)).all() and depth.min() >= -1.0001 and depth.max() <= 1.0001):
-        raise AssertionError("depth_pred not finite or outside [-1, 1]")
-    want = {"flash_attention_nomax": 15 * chunks["unet"], "flash_attention_max": 0,
-            "flash_attention_wide": chunks["encode"] + chunks["decode"]}
+    check_depth("main", out, (n_frames, 1, height, width))
+    lat_hw = (height // 8, width // 8)
+    want = attention_kernel_launches(attn, pipe, chunks, lat_hw, 3, 3, "flash_attention_nomax")
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} implied by chunks {chunks}")
     log({"phase": "main", "frames": n_frames, "res": [height, width], "warmup_s": warm_s, "total_s": total_s,
@@ -390,17 +458,42 @@ def main() -> int:
     attn.set_nomax_allowed(False)
     try:
         fa.reset_launch_counts()
-        out_g = pipe(frames[:12], **fast)
+        out_g = pipe(input_frames=frames[:12], **fast)
         torch.cuda.synchronize()
         launches_g = {fn.__name__: fn.launches for fn in fa.KERNELS}
         chunks_g = dict(pipe.last_chunks)
     finally:
         attn.set_nomax_allowed(True)
-    want_g = {"flash_attention_nomax": 0, "flash_attention_max": 15 * chunks_g["unet"],
-              "flash_attention_wide": chunks_g["encode"] + chunks_g["decode"]}
+    want_g = attention_kernel_launches(attn, pipe, chunks_g, lat_hw, 3, 3, "flash_attention_max")
     if launches_g != want_g or not torch.isfinite(torch.from_numpy(out_g.depth_pred)).all():
         raise AssertionError(f"gate-closed launches {launches_g} != {want_g}, or non-finite depth")
     log({"phase": "gate_closed", "frames": 12, "chunks": chunks_g, "launches": launches_g})
+
+    # ---- the full preset: res 1024, latent merge, 10 refine steps
+    full_frames = torch.randint(0, 256, (n_frames,) + FULL_RES, generator=gen, device="cuda", dtype=torch.uint8)
+    t0 = time.perf_counter()
+    pipe(input_frames=full_frames[:12], **FULL_PRESET)
+    torch.cuda.synchronize()
+    warm_full_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_f = pipe(input_frames=full_frames, verbose=True, **FULL_PRESET)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    launches_f = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    chunks_f = dict(pipe.last_chunks)
+    check_depth("full", out_f, (n_frames, 1) + FULL_RES[1:])
+    want_f = attention_kernel_launches(attn, pipe, chunks_f, (FULL_RES[1] // 8, FULL_RES[2] // 8),
+                                       FULL_PRESET["snippet_lengths"][0], FULL_PRESET["refine_snippet_len"],
+                                       "flash_attention_nomax")
+    if launches_f != want_f:
+        raise AssertionError(f"full: launches {launches_f} != {want_f} implied by chunks {chunks_f}")
+    log({"phase": "full", "frames": n_frames, "res": list(FULL_RES[1:]), "warmup_frames": 12,
+         "warmup_s": warm_full_s, "total_s": full_s, "fps": n_frames / full_s, "timings_s": pipe.last_timings,
+         "chunks": chunks_f, "launches": launches_f,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+    del full_frames, out_f
 
     # ---- kernels against the plain attention path: one UNet chunk and one
     # VAE decode chunk at the main path's shapes (bf16), then the whole path
@@ -411,7 +504,7 @@ def main() -> int:
         u_k, d_k = pipe.unet(x, 999, pipe.empty_text_embed), pipe.vae.decode(z)
         with plain_attention():
             u_p, d_p = pipe.unet(x, 999, pipe.empty_text_embed), pipe.vae.decode(z)
-            depth_p = pipe(frames[:12], **fast).depth_pred
+            depth_p = pipe(input_frames=frames[:12], **fast).depth_pred
     checks = {}
     for name, a, b in (("unet_chunk", u_k, u_p), ("vae_decode_chunk", d_k, d_p)):
         err = (a.float() - b.float()).abs().max().item()
@@ -431,14 +524,49 @@ def main() -> int:
     # before it.  Bound: 10x the 1e-4 that tests/test_torch_pipeline.py holds
     # the port to against JAX at one step, for the full-width model's depth
     pipe32, _ = random_depth_pipeline("cuda", torch.float32, seed=0)
-    no_solve = dict(fast, latent_coalign_kwargs={"num_iterations": 0})
-    depth_k = pipe32(frames[:12], **no_solve).depth_pred
-    with plain_attention():
-        depth_p = pipe32(frames[:12], **no_solve).depth_pred
-    checks["depth_fp32_12_frames_no_solve"] = drift = depth_drift(depth_k, depth_p)
-    if not (drift["max_abs_err"] <= 1e-3 and drift["corr"] > 0.99999):
-        raise AssertionError(f"fp32 depth with kernels vs plain attention: {drift}")
+    no_solve = dict(fast, latent_coalign_kwargs={"num_iterations": 0}, coalign_kwargs={"num_iterations": 0})
+    refine_cases = (  # the refine path after each merge, two steps
+        ("depth_fp32_12_frames_no_solve", no_solve),
+        ("refine_turbo_latent_fp32_12_frames_no_solve",
+         dict(no_solve, refine_step=2, merge_in_latent=True, turbo_refine=True)),
+        ("refine_stride1_exact_fp32_12_frames_no_solve",
+         dict(no_solve, refine_step=2, merge_in_latent=False, turbo_refine=False)),
+    )
+    for name, kw in refine_cases:
+        depth_k = pipe32(input_frames=frames[:12], **kw).depth_pred
+        with plain_attention():
+            depth_p = pipe32(input_frames=frames[:12], **kw).depth_pred
+        checks[name] = drift = dict(depth_drift(depth_k, depth_p), chunks=dict(pipe32.last_chunks))
+        if not (drift["max_abs_err"] <= 1e-3 and drift["corr"] > 0.99999):
+            raise AssertionError(f"{name}: fp32 depth with kernels vs plain attention: {drift}")
     log({"phase": "check", **checks})
+
+    # ---- the paper preset: fp32, exact merge, stride-1 refinement (the
+    # check phase above has run this pipeline, so no warm-up of its own)
+    paper_frames = torch.randint(0, 256, (PAPER_FRAMES,) + PAPER_RES, generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_p = pipe32(input_frames=paper_frames, verbose=True, **PAPER_PRESET)
+    torch.cuda.synchronize()
+    paper_s = time.perf_counter() - t0
+    launches_p = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    chunks_p = dict(pipe32.last_chunks)
+    check_depth("paper", out_p, (PAPER_FRAMES, 1) + PAPER_RES[1:])
+    snippet_shapes = [list(g.shape) for g in out_p.snippet_ls]
+    if [g[0] for g in snippet_shapes] != [PAPER_FRAMES - 2 * d for d in PAPER_PRESET["dilations"]]:
+        raise AssertionError(f"paper: snippet_ls {snippet_shapes} for dilations {PAPER_PRESET['dilations']}")
+    want_p = attention_kernel_launches(attn, pipe32, chunks_p, (PAPER_RES[1] // 8, PAPER_RES[2] // 8),
+                                       PAPER_PRESET["snippet_lengths"][0], PAPER_PRESET["refine_snippet_len"],
+                                       "flash_attention_nomax")
+    if launches_p != want_p:
+        raise AssertionError(f"paper: launches {launches_p} != {want_p} implied by chunks {chunks_p}")
+    log({"phase": "paper", "frames": PAPER_FRAMES, "res": list(PAPER_RES[1:]), "total_s": paper_s,
+         "fps": PAPER_FRAMES / paper_s, "timings_s": pipe32.last_timings, "chunks": chunks_p,
+         "launches": launches_p, "snippet_ls": snippet_shapes,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+    del pipe32, paper_frames, out_p
 
     replaces = {
         "nomax": "rollingdepth_tpu/ops/flash_attention.py:103",
@@ -447,6 +575,8 @@ def main() -> int:
     }
     counted = {"nomax": launches["flash_attention_nomax"], "max": launches_g["flash_attention_max"],
                "wide": launches["flash_attention_wide"]}
+    by_phase = {name: {"main": launches[f"flash_attention_{name}"], "gate_closed": launches_g[f"flash_attention_{name}"],
+                       "full": launches_f[f"flash_attention_{name}"]} for name in ("nomax", "max", "wide")}
     flash_src, conv_src = "rollingdepth_torch/csrc/flash_attn.cu", "rollingdepth_torch/csrc/conv3x3.cu"
 
     def entry(name, tpu, source, replaces_at, launched, r, on_main_path, **extra):
@@ -457,8 +587,14 @@ def main() -> int:
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["shape"], **extra}
 
-    kernels = [entry(f"flash_attention_{name}", tpu, flash_src, replaces[name], counted[name], rows[name], True)
+    kernels = [entry(f"flash_attention_{name}", tpu, flash_src, replaces[name], counted[name], rows[name], True,
+                     launches_by_phase=by_phase[name])
                for tpu, name in (("K1", "nomax"), ("K2", "max"), ("K3", "wide"))]
+    # the fp32 instantiations (one warp per query row, FMA), the paper path's
+    kernels += [entry(f"flash_attention_{name}_fp32", tpu, flash_src, replaces[name],
+                      launches_p[f"flash_attention_{name}"], rows[f"{name}_fp32"], True, design="fp32 fma",
+                      dtype="float32", launches_by_phase={"paper": launches_p[f"flash_attention_{name}"]})
+                for tpu, name in (("K1", "nomax"), ("K3", "wide"))]
     kernels += [entry(name, tpu, conv_src, f"rollingdepth_tpu/ops/conv3x3.py:{line}", conv_launches[name],
                       conv_rows[name], False)
                 for tpu, name, line in (("K4", "conv3x3_same", 40), ("K5", "conv3x3_same_db", 132))]

@@ -1,18 +1,25 @@
-"""RollingDepth video-depth pipeline, fast path (latent-space merge).
+"""RollingDepth video-depth pipeline.
 
 Counterpart of ``rollingdepth_tpu/pipelines/rollingdepth.py``
-(``RollingDepthPipeline.forward`` with ``merge_in_latent=True`` and
-``refine_step=0``):
+(``RollingDepthPipeline.__call__`` and ``forward``):
 1. VAE-encode all frames, ``max_vae_bs`` at a time;
 2. build the snippet windows of every dilation;
 3. one DDIM denoise of every window through the UNet, ``snippet_batch``
    windows at a time, all starting from ONE shared noise map;
-4. co-align the windows' latents (``aligner.py``) and merge them per frame;
-5. decode the N frames once, taking the channel mean;
-6. min-max normalise to [-1, 1].
+4. merge the windows per frame, either
+   - in latent space (``merge_in_latent=True``): co-align the windows'
+     latents (``aligner.py``), average them per frame and decode the N
+     frames once, or
+   - in depth space (``merge_in_latent=False``, the reference merge): decode
+     every window's frames and co-align the decoded depth;
+5. min-max normalise to [-1, 1];
+6. with ``refine_step > 0``, refine: VAE-encode the merged depth (or take
+   the merged latent, ``refine_in_latent``), noise it to the middle of a
+   ``2 * refine_step`` DDIM schedule and take ``refine_step`` steps over
+   windows whose dilation anneals to 1, averaging overlapping windows per
+   frame; decode.
 Work items are independent, so the last chunk of each loop runs at its
-true size.  Refinement and the exact (depth-space) merge are ROADMAP
-item 12 and raise ``NotImplementedError`` here.
+true size.
 """
 
 from __future__ import annotations
@@ -24,20 +31,42 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..aligner import AlignerConfig, DepthAligner
 from ..utils.device import resolve_device
-from .snippets import cap_max_dilation, chain_stride_index_matrix, snippet_index_matrix
+from .snippets import (
+    cap_max_dilation,
+    chain_stride_index_matrix,
+    coverage_count,
+    current_gap,
+    partition_index_matrix,
+    snippet_index_matrix,
+)
 
 logger = logging.getLogger(__name__)
 
 
 class RollingDepthOutput:
-    def __init__(self, input_frames, depth_pred, depth_coaligned):
-        self.input_frames = input_frames  # [N, 3, H, W]
+    def __init__(self, input_frames, depth_pred, depth_coaligned, snippet_ls=None):
+        self.input_frames = input_frames  # [N, 3, H, W]: uint8, or float in [-1, 1]
         self.depth_pred = depth_pred  # [N, 1, H, W] in [-1, 1]
-        self.depth_coaligned = depth_coaligned
-        self.snippet_ls: List = []  # snippets are never decoded on the latent path
+        self.depth_coaligned = depth_coaligned  # [N, 1, H, W]
+        # per dilation [S, n, 1, H, W]; empty on the latent path, which never decodes a window
+        self.snippet_ls: List = [] if snippet_ls is None else snippet_ls
+        self._input_rgb = None
+
+    @property
+    def input_rgb(self) -> np.ndarray:
+        """[N, 3, H, W] in [0, 1]."""
+        if self._input_rgb is None:
+            f = self.input_frames
+            f = f.cpu().numpy() if torch.is_tensor(f) else np.asarray(f)
+            if f.dtype == np.uint8:
+                self._input_rgb = f.astype(np.float32) / 255.0
+            else:
+                self._input_rgb = f.astype(np.float32) / 2.0 + 0.5
+        return self._input_rgb
 
 
 class RollingDepthPipeline:
@@ -53,24 +82,71 @@ class RollingDepthPipeline:
         self.empty_text_embed = torch.as_tensor(empty_text_embed).to(device=self.device, dtype=dtype)
         self.snippet_batch = snippet_batch
         self.last_timings: Dict[str, float] = {}
-        self.last_chunks: Dict[str, int] = {}  # encode/unet/decode chunk counts of the last call
+        # chunks of the last call: every VAE encode and decode, snippet and refine UNet calls
+        self.last_chunks: Dict[str, int] = {}
 
-    def __call__(self, input_frames, dilations: Sequence[int] = (1, 25), cap_dilation: bool = True,
-                 snippet_lengths: Sequence[int] = (3,), init_infer_steps: Sequence[int] = (1,),
-                 strides: Sequence[int] = (1,), refine_step: int = 0, seed: Optional[int] = None,
-                 verbose: bool = False, max_vae_bs: int = 4, merge_in_latent: bool = True,
-                 latent_coalign_kwargs: Optional[Dict] = None, **kwargs) -> RollingDepthOutput:
-        """Entry point with the reference ``__call__``'s argument names.
-        Frames are given as an array; reading video waits for the port's
-        CLI (ROADMAP)."""
-        return self.forward(
-            np.asarray(input_frames) if not torch.is_tensor(input_frames) else input_frames,
-            dilations=list(dilations), cap_dilation=cap_dilation,
+    def __call__(
+        self,
+        input_video_path=None,
+        input_frames=None,  # [N, 3, H, W]: uint8 or float in [-1, 1]; numpy or torch
+        original_res=None,  # (H, W) before resize, for restore_res with input_frames
+        start_frame: int = 0,
+        frame_count: int = 0,
+        processing_res: int = 1024,
+        resample_method: str = "BILINEAR",
+        dilations: Sequence[int] = (1, 25),
+        cap_dilation: bool = True,
+        snippet_lengths: Sequence[int] = (3,),
+        init_infer_steps: Sequence[int] = (1,),
+        strides: Sequence[int] = (1,),
+        coalign_kwargs: Optional[Dict] = None,
+        refine_step: int = 0,
+        refine_snippet_len: int = 3,
+        refine_start_dilation: int = 6,
+        seed: Optional[int] = None,
+        verbose: bool = False,
+        max_vae_bs: int = 4,
+        unload_snippet: bool = False,
+        restore_res: bool = False,
+        merge_in_latent: bool = False,
+        latent_coalign_kwargs: Optional[Dict] = None,
+        refine_in_latent: Optional[bool] = None,
+        turbo_refine: Optional[bool] = None,
+    ) -> RollingDepthOutput:
+        """Entry point with the JAX package's ``__call__`` arguments: frames
+        from ``input_video_path`` (``io/video.py``) unless ``input_frames``
+        is given; ``restore_res`` resizes the depth back to ``original_res``."""
+        if processing_res > 1024:
+            logger.warning("Processing at high resolution (%d) may lead to suboptimal accuracy.", processing_res)
+        if input_frames is None:
+            from ..io.video import load_video_frames
+
+            input_frames, original_res = load_video_frames(
+                input_video_path, start_frame=start_frame, frame_count=frame_count,
+                processing_res=processing_res, resample_method=resample_method, verbose=verbose, dtype="uint8",
+            )
+            logger.info("%d frames loaded from video %s", len(input_frames), input_video_path)
+        elif original_res is None:
+            original_res = tuple(input_frames.shape[-2:])
+        if not torch.is_tensor(input_frames):
+            input_frames = np.asarray(input_frames)
+
+        out = self.forward(
+            input_frames, dilations=list(dilations), cap_dilation=cap_dilation,
             snippet_lengths=list(snippet_lengths), init_infer_steps=list(init_infer_steps),
-            strides=list(strides), refine_step=refine_step, seed=seed, verbose=verbose,
-            max_vae_bs=max_vae_bs, merge_in_latent=merge_in_latent,
-            latent_coalign_kwargs=latent_coalign_kwargs, **kwargs,
+            strides=list(strides), coalign_kwargs=coalign_kwargs, refine_step=refine_step,
+            refine_snippet_len=refine_snippet_len, refine_start_dilation=refine_start_dilation, seed=seed,
+            verbose=verbose, max_vae_bs=max_vae_bs, unload_snippet=unload_snippet,
+            merge_in_latent=merge_in_latent, latent_coalign_kwargs=latent_coalign_kwargs,
+            refine_in_latent=refine_in_latent, turbo_refine=turbo_refine,
         )
+        if restore_res:
+            # on the device, bilinear with half-pixel centres and no
+            # antialiasing: the rule of the JAX package's cv2.resize(INTER_LINEAR)
+            depth = torch.as_tensor(out.depth_pred, device=self.device)
+            out.depth_pred = F.interpolate(depth, size=tuple(int(s) for s in original_res), mode="bilinear",
+                                           align_corners=False, antialias=False).cpu().numpy()
+        return out
 
     @contextlib.contextmanager
     def _phase(self, name: str, timings: Dict[str, float], verbose: bool):
@@ -93,21 +169,21 @@ class RollingDepthPipeline:
         snippet_lengths: List[int] = [3],
         init_infer_steps: List[int] = [1],
         strides: List[int] = [1],
+        coalign_kwargs: Optional[Dict] = None,  # AlignerConfig overrides of the depth-space solve
         refine_step: int = 0,
+        refine_snippet_len: int = 3,
+        refine_start_dilation: int = 6,
         seed: Optional[int] = None,
         verbose: bool = False,
         max_vae_bs: int = 4,
+        unload_snippet: bool = False,  # snippet_ls as numpy arrays on the host
         init_noise: Optional[np.ndarray] = None,  # [4, h, w] shared noise override
-        fetch_output: bool = True,  # False: depth_pred stays a device tensor
-        merge_in_latent: bool = True,
-        latent_coalign_kwargs: Optional[Dict] = None,
-        coalign_kwargs: Optional[Dict] = None,
+        fetch_output: bool = True,  # False: the depth maps stay device tensors
+        merge_in_latent: bool = False,
+        latent_coalign_kwargs: Optional[Dict] = None,  # AlignerConfig overrides of the latent solve
+        refine_in_latent: Optional[bool] = None,  # None = off: refine from the re-encoded depth
+        turbo_refine: Optional[bool] = None,  # partition refine windows; None follows merge_in_latent
     ) -> RollingDepthOutput:
-        if refine_step > 0 or not merge_in_latent or coalign_kwargs:
-            raise NotImplementedError(
-                "refinement and the exact depth-space merge are not ported yet (ROADMAP item 12); "
-                "use refine_step=0, merge_in_latent=True"
-            )
         if 1 not in dilations:
             raise ValueError("dilations should include 1")
         if len(set(snippet_lengths)) != len(snippet_lengths):
@@ -124,6 +200,12 @@ class RollingDepthPipeline:
         seq_len = int(input_frames.shape[0])
         if cap_dilation:
             dilations = [cap_max_dilation(seq_len, n, d, verbose) for n, d in zip(snippet_lengths, dilations)]
+            refine_start_dilation = cap_max_dilation(seq_len, refine_snippet_len, refine_start_dilation, verbose)
+        # the JAX package's flags: partition refine windows follow the latent
+        # merge; handing the merged latent to refinement is opt-in
+        if turbo_refine is None:
+            turbo_refine = merge_in_latent
+        refine_latent_direct = bool(merge_in_latent and refine_step > 0 and refine_in_latent)
         timings: Dict[str, float] = {}
         chunks: Dict[str, int] = {}
         dtype, dev = self.dtype, self.device
@@ -135,10 +217,7 @@ class RollingDepthPipeline:
                 frames = frames.permute(0, 2, 3, 1).to(dtype) / 127.5 - 1.0
             else:
                 frames = frames.permute(0, 2, 3, 1).to(dtype)
-            rgb_latent = torch.cat(
-                [self.vae.encode_mean(frames[i : i + max_vae_bs]) for i in range(0, seq_len, max_vae_bs)]
-            )  # [N, h, w, 4]
-            chunks["encode"] = -(-seq_len // max_vae_bs)
+            rgb_latent = self._encode(frames, max_vae_bs, chunks)  # [N, h, w, 4]
 
         # ---- shared init noise: one map for every window
         h, w = rgb_latent.shape[1:3]
@@ -149,7 +228,7 @@ class RollingDepthPipeline:
             gen = torch.Generator(device=dev).manual_seed(0 if seed is None else seed)
             noise = torch.randn((h, w, 4), generator=gen, device=dev).to(dtype)
 
-        # ---- 2-3. windows and one-step denoise
+        # ---- 2-3. windows and their denoise
         with self._phase("snippet_infer", timings, verbose):
             idx_ls = [
                 snippet_index_matrix(seq_len, n, d) if stride == 1
@@ -165,31 +244,68 @@ class RollingDepthPipeline:
                 lat_ls = [self._infer_snippets(rgb_latent, noise, m, st, chunks)
                           for m, st in zip(idx_ls, init_infer_steps)]
 
-        # ---- 4. latent-space co-alignment and merge
-        with self._phase("coalign", timings, verbose):
-            lat_kwargs = {"factor": 3, "depth_loss_weight": 0.0}
-            lat_kwargs.update(latent_coalign_kwargs or {})
-            merged, _, _, self.last_loss_history = DepthAligner(AlignerConfig(**lat_kwargs)).run(
-                lat_ls, dilations, restore_shift=True, channels_last=True, index_mats=idx_ls, seq_len=seq_len,
-            )  # [N, h, w, 4]
+        # ---- 4. merge
+        merged_lat, snippet_ls = None, []
+        if merge_in_latent:
+            with self._phase("coalign", timings, verbose):
+                lat_kwargs = {"factor": 3, "depth_loss_weight": 0.0}
+                lat_kwargs.update(latent_coalign_kwargs or {})
+                merged_lat, _, _, self.last_loss_history = DepthAligner(AlignerConfig(**lat_kwargs)).run(
+                    lat_ls, dilations, restore_shift=True, channels_last=True, index_mats=idx_ls, seq_len=seq_len,
+                )  # [N, h, w, 4]
+            with self._phase("decode", timings, verbose):
+                depth_coaligned = self._decode(merged_lat.to(dtype), max_vae_bs, chunks)[:, None].float()
+        else:
+            # decode every window's frames (the JAX package counts this in snippet_infer)
+            with self._phase("snippet_decode", timings, verbose):
+                flat = torch.cat([lat.reshape((-1,) + lat.shape[2:]) for lat in lat_ls])
+                depth_flat = self._decode(flat.to(dtype), max_vae_bs, chunks).float()  # [sum S*n, H, W]
+                group_ls = [g.reshape(m.shape[0], m.shape[1], 1, *depth_flat.shape[1:])
+                            for g, m in zip(torch.split(depth_flat, [m.size for m in idx_ls]), idx_ls)]
+            timings["snippet_infer"] += timings["snippet_decode"]
+            snippet_ls = [g.cpu().numpy() for g in group_ls] if unload_snippet else group_ls
+            with self._phase("coalign", timings, verbose):
+                depth_coaligned, _, _, self.last_loss_history = DepthAligner(
+                    AlignerConfig(**(coalign_kwargs or {}))
+                ).run(group_ls, dilations, index_mats=idx_ls, seq_len=seq_len)  # [N, 1, H, W]
 
-        # ---- 5-6. decode N frames once (channel mean), min-max normalise to [-1, 1]
-        with self._phase("decode", timings, verbose):
-            merged = merged.to(dtype)
-            depth = torch.cat(
-                [self.vae.decode(merged[i : i + max_vae_bs]).mean(dim=-1) for i in range(0, seq_len, max_vae_bs)]
-            )  # [N, H, W]
-            chunks["decode"] = -(-seq_len // max_vae_bs)
-            depth = depth[:, None].float()
-            depth = (depth - depth.amin()) / (depth.amax() - depth.amin()) * 2.0 - 1.0
+        # ---- 5. min-max normalise to [-1, 1]
+        depth_coaligned = (depth_coaligned - depth_coaligned.amin()) / (
+            depth_coaligned.amax() - depth_coaligned.amin()) * 2.0 - 1.0
+
+        # ---- 6. refinement
+        if refine_step > 0:
+            with self._phase("refine", timings, verbose):
+                if refine_latent_direct:
+                    depth_latent = merged_lat.to(dtype)
+                else:
+                    depth3 = depth_coaligned.expand(-1, 3, -1, -1).permute(0, 2, 3, 1).to(dtype)
+                    depth_latent = self._encode(depth3, max_vae_bs, chunks)
+                depth_latent = self._refine(rgb_latent, depth_latent, noise, refine_step, refine_snippet_len,
+                                            refine_start_dilation, bool(turbo_refine), chunks)
+                # clipped to [-1, 1], as the JAX package's uint16 fetch clips it
+                depth_pred = self._decode(depth_latent, max_vae_bs, chunks)[:, None].float().clamp(-1.0, 1.0)
+        else:
+            depth_pred = depth_coaligned
 
         if verbose:
             logger.info("phase timings: %s", {k: f"{v:.3f}s" for k, v in timings.items()})
         self.last_timings = timings
         self.last_chunks = chunks
         if fetch_output:
-            depth = depth.cpu().numpy()
-        return RollingDepthOutput(input_frames, depth, depth)
+            depth_pred = depth_pred.cpu().numpy()
+            depth_coaligned = depth_pred if refine_step <= 0 else depth_coaligned.cpu().numpy()
+        return RollingDepthOutput(input_frames, depth_pred, depth_coaligned, snippet_ls)
+
+    def _encode(self, x: torch.Tensor, bs: int, chunks: Dict[str, int]) -> torch.Tensor:
+        """[M, H, W, 3] -> [M, h, w, 4] scaled latents, ``bs`` frames a chunk."""
+        chunks["encode"] = chunks.get("encode", 0) + -(-x.shape[0] // bs)
+        return torch.cat([self.vae.encode_mean(x[i : i + bs]) for i in range(0, x.shape[0], bs)])
+
+    def _decode(self, z: torch.Tensor, bs: int, chunks: Dict[str, int]) -> torch.Tensor:
+        """[M, h, w, 4] -> [M, H, W] depth, the decoded channels' mean."""
+        chunks["decode"] = chunks.get("decode", 0) + -(-z.shape[0] // bs)
+        return torch.cat([self.vae.decode(z[i : i + bs]).mean(dim=-1) for i in range(0, z.shape[0], bs)])
 
     def _infer_snippets(self, rgb_latent, noise, index_matrix: np.ndarray, infer_steps: int,
                         chunks: Dict[str, int]) -> torch.Tensor:
@@ -209,3 +325,39 @@ class RollingDepthPipeline:
             outs.append(depth_lat)
         chunks["unet"] = chunks.get("unet", 0) + -(-s // sb) * len(timesteps)
         return torch.cat(outs)
+
+    def _refine(self, rgb_latent, depth_latent, noise, refine_step: int, snippet_len: int, start_dilation: int,
+                partition: bool, chunks: Dict[str, int], skip_t_ratio: float = 0.5) -> torch.Tensor:
+        """Coarse-to-fine rolling refinement (JAX ``_refine``).  The second
+        half of a ``refine_step / skip_t_ratio`` schedule: noise the depth
+        latents once at its first timestep, then per step denoise every
+        window of that step's dilation (annealed from ``start_dilation`` to
+        1) and average each frame over its windows.  ``partition`` takes a
+        phase-rotated partition of the frames (~N/n windows a step) instead
+        of the stride-1 windows (~N a step).  A frame no window covers keeps
+        its latent."""
+        seq_len = rgb_latent.shape[0]
+        total_steps = int(refine_step / skip_t_ratio)
+        all_ts = self.scheduler.timesteps(total_steps)
+        timesteps = [int(t) for t in all_ts[int(len(all_ts) * skip_t_ratio):]]
+        n_steps, sb, dev = len(timesteps), self.snippet_batch, rgb_latent.device
+        depth = self.scheduler.add_noise(depth_latent.float(), noise.float().expand(depth_latent.shape),
+                                         timesteps[0]).to(self.dtype)
+        for i_step, t in enumerate(timesteps):
+            gap = current_gap(i_step, n_steps, start_dilation, 1)
+            if partition:
+                m = partition_index_matrix(seq_len, snippet_len, gap + 1, phase=i_step)
+            else:
+                m = snippet_index_matrix(seq_len, snippet_len, gap + 1)
+            idx = torch.as_tensor(m, device=dev, dtype=torch.long)
+            acc = torch.zeros(depth.shape, device=dev, dtype=torch.float32)
+            for c in range(0, idx.shape[0], sb):
+                ic = idx[c : c + sb]
+                src = depth[ic]  # every window of a step reads the step's input
+                eps = self.unet(torch.cat([rgb_latent[ic], src], dim=-1), t, self.empty_text_embed)
+                prev = self.scheduler.step(eps.float(), t, src.float(), total_steps)[0]
+                acc.index_add_(0, ic.reshape(-1), prev.reshape((-1,) + prev.shape[2:]))
+            chunks["refine_unet"] = chunks.get("refine_unet", 0) + -(-idx.shape[0] // sb)
+            cnt = torch.as_tensor(coverage_count(m, seq_len), device=dev, dtype=torch.float32)[:, None, None, None]
+            depth = torch.where(cnt > 0, acc / cnt.clamp(min=1.0), depth.float()).to(self.dtype)
+        return depth

@@ -1,14 +1,17 @@
-"""Where the fast path's time goes on the card: phases, device busy share, kernels.
+"""Where a preset's time goes on the card: phases, device busy share, kernels.
 
-    python -m rollingdepth_torch.tools.profile_fast_path [--frames 60] [--out DIR]
+    python -m rollingdepth_torch.tools.profile_fast_path [--preset fast|fast1024|full|paper]
+        [--frames 60] [--height H --width W] [--out DIR]
 
 Builds the full-width pipeline with seeded random weights
-(``utils/synthetic.py``), runs the fast preset once to warm up, then once
-under ``torch.profiler`` with CPU and CUDA activities.  For each phase
+(``utils/synthetic.py``) in the preset's dtype, runs the preset (default
+``fast``) once to warm up, then once under ``torch.profiler`` with CPU and
+CUDA activities.  Frames default to 16:9 at the preset's resolution
+(432x768, or 576x1024 for ``fast1024`` and ``full``).  For each phase
 (the pipeline's ``rollingdepth.<phase>`` spans) it reports the host time,
 the device time covered by kernels inside the span and the device's idle
 share; then the kernels by total device time.  Prints JSON lines and writes
-``profile_fast_path.json`` and the profiler's kernel table into ``--out``.
+``profile_<preset>.json`` and the profiler's kernel table into ``--out``.
 The profiler slows the host: a phase bound by the host (the aligner's
 loop) runs longer under it than in ``chip_smoke.py``, so its idle share
 here is an upper bound.
@@ -24,13 +27,14 @@ import sys
 import time
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--preset", default="fast", choices=["fast", "fast1024", "full", "paper"])
     ap.add_argument("--frames", type=int, default=60)
-    ap.add_argument("--height", type=int, default=432)
-    ap.add_argument("--width", type=int, default=768)
+    ap.add_argument("--height", type=int, default=None)
+    ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--out", default="profile_out")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import torch
     from torch.autograd import DeviceType
@@ -39,20 +43,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_fast_path: no CUDA device", file=sys.stderr)
         return 2
-    from ..utils.synthetic import FAST_PRESET, random_depth_pipeline
+    from ..io.pretrained import DTYPE_MAP
+    from ..utils.presets import resolve_preset
+    from ..utils.synthetic import preset_kwargs, random_depth_pipeline
 
+    settings = resolve_preset(args.preset)
+    call = preset_kwargs(args.preset)
+    width = args.width or settings.res
+    height = args.height or width * 9 // 16
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    pipe, _ = random_depth_pipeline("cuda", torch.bfloat16, seed=0)
+    pipe, _ = random_depth_pipeline("cuda", DTYPE_MAP[settings.dtype], seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    frames = torch.randint(0, 256, (args.frames, 3, args.height, args.width), generator=gen,
+    frames = torch.randint(0, 256, (args.frames, 3, height, width), generator=gen,
                            device="cuda", dtype=torch.uint8)
-    pipe(frames, **FAST_PRESET)
+    pipe(input_frames=frames, **call)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(frames, verbose=True, **FAST_PRESET)
+        pipe(input_frames=frames, verbose=True, **call)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     events = prof.events()
@@ -71,7 +81,7 @@ def main() -> int:
     def busy_us(a: float, b: float) -> float:
         return sum(max(0.0, min(hi, b) - max(lo, a)) for lo, hi in merged)
 
-    result = {"card": smi, "frames": args.frames, "res": [args.height, args.width], "wall_s": wall_s,
+    result = {"card": smi, "preset": args.preset, "frames": args.frames, "res": [height, width], "wall_s": wall_s,
               "device_kernels_seen": len(kernels), "phases": {}}
     for name, r in spans.items():
         host_us = r.end - r.start
@@ -95,9 +105,9 @@ def main() -> int:
         print(json.dumps({key: result.get(key), "card": smi}), flush=True)
     print(json.dumps({"kernels_by_device_ms": result["kernels_by_device_ms"][:15]}), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_fast_path.json"), "w") as f:
+    with open(os.path.join(args.out, f"profile_{args.preset}.json"), "w") as f:
         json.dump(result, f, indent=1)
-    with open(os.path.join(args.out, "profile_fast_path_table.txt"), "w") as f:
+    with open(os.path.join(args.out, f"profile_{args.preset}_table.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     return 0
 

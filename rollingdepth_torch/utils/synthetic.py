@@ -26,14 +26,20 @@ EMPTY_PROMPT_IDS = (49406, 49407)
 
 
 def preset_kwargs(preset: str, seed: int = 0) -> dict:
-    """The pipeline call arguments of a CLI preset (``utils/presets.py``)."""
+    """The pipeline call arguments of a CLI preset (``utils/presets.py``);
+    its processing resolution and dtype are ``resolve_preset(preset).res``
+    and ``.dtype``."""
     s = resolve_preset(preset)
     return dict(dilations=s.dilations, cap_dilation=s.cap_dilation, snippet_lengths=s.snippet_lengths,
                 init_infer_steps=s.init_infer_steps, strides=s.strides, refine_step=s.refine_step,
-                max_vae_bs=s.max_vae_bs, merge_in_latent=s.merge_in_latent, seed=seed)
+                refine_snippet_len=s.refine_snippet_len, refine_start_dilation=s.refine_start_dilation,
+                max_vae_bs=s.max_vae_bs, merge_in_latent=s.merge_in_latent, refine_in_latent=s.refine_in_latent,
+                turbo_refine=s.turbo_refine, seed=seed)
 
 
 FAST_PRESET = preset_kwargs("fast")
+FULL_PRESET = preset_kwargs("full")  # res 1024, dilations [1, 10, 25], 10 refine steps, latent merge
+PAPER_PRESET = preset_kwargs("paper")  # fp32, uncapped dilations, exact merge, stride-1 refine windows
 
 
 @torch.no_grad()

@@ -7,7 +7,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "rollingdepth_tpu", "safetensors", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "optax", "rollingdepth_tpu", "safetensors", "cv2", "matplotlib")
+LAZY_ONLY = ("cv2", "matplotlib")  # absent on the card's machine: imported inside the functions that need them
 PORT_FILES = sorted((ROOT / "rollingdepth_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -29,17 +30,19 @@ def _imports(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     """No jax, optax or rollingdepth_tpu, at any depth; the safetensors
-    package is absent on the card, and cv2 may only be imported lazily."""
+    package is absent on the card, and cv2 and matplotlib may only be
+    imported lazily."""
     for mod, line, in_function in _imports(path):
         root = mod.split(".")[0]
-        if root == "cv2" and in_function:
+        if root in LAZY_ONLY and in_function:
             continue
         assert root not in FORBIDDEN, f"{path.name}:{line} imports {mod}"
 
 
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"flash_attention.py", "attention.py", "unet.py", "rollingdepth.py", "chip_smoke.py"} <= names
+    assert {"flash_attention.py", "attention.py", "unet.py", "rollingdepth.py", "chip_smoke.py", "cli.py", "video.py",
+            "native_video.py", "colorize.py", "eval.py"} <= names
 
 
 def _no_card():
@@ -78,3 +81,14 @@ def test_explicit_cpu_is_accepted():
     from rollingdepth_torch import resolve_device
 
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("tool, argv", [("profile_fast_path", ["--preset", "full"]),
+                                        ("chunk_times", ["--preset", "paper"])])
+def test_card_tools_refuse_without_a_card(tool, argv, capsys):
+    """The timing tools run on the card only: here they exit 2 and say why."""
+    import importlib
+
+    _no_card()
+    assert importlib.import_module(f"rollingdepth_torch.tools.{tool}").main(argv) == 2
+    assert "no CUDA device" in capsys.readouterr().err

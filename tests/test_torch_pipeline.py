@@ -1,5 +1,6 @@
 """The slice as a whole: the port's fast-path pipeline against the JAX
-pipeline, and the port's loader on a diffusers-layout checkpoint.
+pipeline, and the port's loader on a diffusers-layout checkpoint (the
+refine and exact-merge paths: ``test_torch_refine.py``).
 
 Tiny UNet, VAE and text encoder on both sides with the same weights
 (``state_dict_from_jax``) and the same ``init_noise``, fp32,
@@ -100,26 +101,28 @@ def test_chunking_and_call_entry_point(both):
     """Chunk counts are ceil(items / chunk size) (last chunk at its true size), and
     ``__call__`` with float frames gives what ``forward`` gives."""
     _, tpipe = both
-    frames, noise = _inputs(seed=1, n=9)
-    kw = dict(init_noise=noise, latent_coalign_kwargs={"num_iterations": 5})
+    frames, _ = _inputs(seed=1, n=9)
+    kw = dict(seed=0, latent_coalign_kwargs={"num_iterations": 5})  # __call__ takes no init_noise
     a = tpipe.forward(frames, **FAST, **kw)
     # 9 frames: windows 7 (d=1) + 3 (d=3) at snippet_batch 4 -> 3 UNet chunks
     assert tpipe.last_chunks == {"encode": 3, "unet": 3, "decode": 3}
-    b = tpipe(frames.astype(np.float32) / 127.5 - 1.0, **FAST, **kw)
+    b = tpipe(input_frames=frames.astype(np.float32) / 127.5 - 1.0, **FAST, **kw)
     np.testing.assert_allclose(b.depth_pred, a.depth_pred, atol=1e-5)
     c = tpipe.forward(frames, **FAST, **kw, fetch_output=False)
     assert torch.is_tensor(c.depth_pred)
 
 
-def test_unported_paths_raise(both):
+def test_unported_paths_raise(both, tmp_path):
+    """What still raises: dilations without 1, and the relight stack's
+    loader (ROADMAP item 13).  Refinement and the exact merge run
+    (``test_torch_refine.py``)."""
     _, tpipe = both
     frames, _ = _inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tpipe.forward(frames, dilations=[1, 3], refine_step=2)
-    with pytest.raises(NotImplementedError):
-        tpipe.forward(frames, dilations=[1, 3], merge_in_latent=False)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="dilations should include 1"):
         tpipe.forward(frames, dilations=[2, 3])
+    (tmp_path / "model_index.json").write_text(json.dumps({"_class_name": "RollingImgPipeline"}))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        load_pipeline(str(tmp_path), dtype="fp32", device="cpu")
 
 
 def _write_checkpoint(root, unet_params, vae_params, clip_params, clip_cfg):

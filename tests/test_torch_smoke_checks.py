@@ -80,3 +80,56 @@ def test_conv_dropped_tap_chunk_fails(shape):
     dropped = pc.conv3x3_reference(x, w_dropped, b)
     with pytest.raises(AssertionError):
         cs.held_to_plain("dropped", dropped, ref, True, lambda: dropped)
+
+
+@pytest.mark.parametrize("lat_hw, calls", [((54, 96), 15), ((72, 128), 16), ((45, 80), 15), ((36, 64), 15)])
+def test_narrow_kernel_calls_at_sd2_width(lat_hw, calls):
+    """The smoke's launch rule for the SD2 UNet: the mid-block (3 frames of
+    7x12 = 252 tokens at 768x432) stays under the auto rule's 256 tokens,
+    and takes the kernel at 1024x576 (432 tokens)."""
+    from rollingdepth_torch.models.unet import UNetConfig
+    from rollingdepth_torch.ops import attention as attn
+
+    assert cs.narrow_kernel_calls(attn, UNetConfig.sd21(), 3, *lat_hw) == calls
+
+
+@pytest.mark.parametrize("lat_hw", [(20, 40), (13, 22), (36, 70)])
+def test_narrow_kernel_calls_match_the_model(monkeypatch, lat_hw):
+    """The rule counted level by level equals the self-attention calls a
+    UNet call sends to the auto rule's kernels (here on the CPU, where the
+    dispatch is spied on as if the tensors lay on the card)."""
+    from rollingdepth_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from rollingdepth_torch.ops import attention as attn
+
+    cfg = UNetConfig(sample_size=8, block_out_channels=(32, 64, 128, 128), attention_head_dim=(1, 2, 4, 4),
+                     norm_num_groups=8, cross_attention_dim=16)
+    want = cs.narrow_kernel_calls(attn, cfg, 3, *lat_hw)
+    seen = []
+    rule = attn.auto_selects_kernel
+
+    def spy(on_cuda, lq, lk, d):
+        if rule(True, lq, lk, d) and d < 128:
+            seen.append(lq)
+        return False
+
+    monkeypatch.setattr(attn, "auto_selects_kernel", spy)
+    unet = UNet2DConditionModel(cfg, device="cpu")
+    with torch.no_grad():
+        unet(torch.zeros((1, 3) + lat_hw + (8,)), 999, torch.zeros((1, 2, 16)))
+    assert len(seen) == want > 0
+
+
+def test_launches_implied_by_chunks():
+    from rollingdepth_torch.models.unet import UNetConfig
+    from rollingdepth_torch.ops import attention as attn
+
+    class Pipe:
+        class unet:
+            config = UNetConfig.sd21()
+
+    chunks = {"encode": 30, "unet": 14, "decode": 30, "refine_unet": 31}
+    assert cs.attention_kernel_launches(attn, Pipe, chunks, (72, 128), 3, 3, "flash_attention_nomax") == {
+        "flash_attention_nomax": 16 * 45, "flash_attention_max": 0, "flash_attention_wide": 60}
+    assert cs.attention_kernel_launches(attn, Pipe, {"encode": 3, "unet": 2, "decode": 3}, (54, 96), 3, 3,
+                                        "flash_attention_max") == {
+        "flash_attention_nomax": 0, "flash_attention_max": 30, "flash_attention_wide": 6}
