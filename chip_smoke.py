@@ -9,7 +9,8 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. build   the CUDA kernels of the path (one nvcc per source, in parallel);
 2. kernels each kernel against its plain PyTorch version at the main
-           path's shapes (bf16), at ragged shapes (bf16 and fp32), with its time,
+           path's shapes (bf16 and, for K1 and K3, fp32), at ragged shapes (bf16
+           and fp32), with its time,
            the plain version's time, one SDPA call's time as a yardstick
            (the port never calls SDPA) and the card's data-sheet bound;
    conv    the 3x3 conv op (K4, K5; on no model path): both wrappers at the
@@ -44,7 +45,7 @@ Phases, each of which must pass or the script exits non-zero:
 7. paper   the paper preset (fp32, uncapped dilations [1, 10, 25], the
            depth-space merge of every decoded window, 10 refine steps over
            stride-1 windows) on 51 frames, the fewest on which dilation 25
-           has a window, at PAPER_RES.
+           has a window, at the preset's 432x768.
 In main, full and paper the kernel launch counts must equal what the
 pipeline's chunk counts imply (``attention_kernel_launches``), and the
 depth must be finite, of the clip's shape and within [-1, 1].  The card's
@@ -72,7 +73,9 @@ import numpy as np
 from rollingdepth_torch.tools.bench_flash_variants import cuda_ms
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, data sheet (SXM, 700 W)
+H100_TF32_FLOPS = 495e12  # dense tensor-core peak, tf32
 H100_FP32_FLOPS = 67e12  # outside the tensor cores
+TF32_TERMS = 3  # the fp32 attention kernels take each product as three tf32 products
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -144,13 +147,19 @@ def check_depth(what, out, shape) -> None:
             raise AssertionError(f"{what}: {name} not finite or outside [-1, 1]")
 
 
-def attention_bound_ms(b, lq, lk, h, d, itemsize) -> tuple:
+def attention_bound_ms(b, lq, lk, h, d, itemsize, fp32_fma=False) -> tuple:
     """Least time for one attention call: q, k, v read once and o written
-    once at the memory rate, or QK^T and PV at the peak rate of the type."""
+    once at the memory rate, or QK^T and PV at the peak rate of the type:
+    bf16 on the tensor cores; fp32 as three tf32 products each (3xTF32, the
+    kernels' route, near-fp32 products) or, with ``fp32_fma``, on fp32 FMA
+    outside the tensor cores."""
     nbytes = (2 * b * lq * h * d + 2 * b * lk * h * d) * itemsize
     flops = 4.0 * b * h * lq * lk * d
-    peak = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
+    if itemsize == 2:
+        t_ops = flops / H100_BF16_FLOPS
+    else:
+        t_ops = flops / H100_FP32_FLOPS if fp32_fma else TF32_TERMS * flops / H100_TF32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, t_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -190,24 +199,31 @@ def drop_tap_chunk(torch, w):
     return out
 
 
-def held_to_plain(what, got, ref, bf16, plain_dropped=None) -> dict:
+def held_to_plain(what, got, ref, bf16, plain_dropped) -> dict:
     """Raise unless ``got`` is finite and within the bounds of ``ref``: max
     |error| within 2e-2 (bf16) or 1e-4 (fp32) of the output's scale and, in
-    bf16, mean |error| within MEAN_TOL_BF16 of the mean |output|.  In bf16,
+    bf16, mean |error| within MEAN_TOL_BF16 of the mean |output|.
     ``plain_dropped()`` is the plain version without one tile of work
-    (``drop_key_tile``, ``drop_tap_chunk``): its mean shift must exceed the
-    mean bound, so that a kernel that skipped a tile would fail."""
+    (``drop_key_tile``, ``drop_tap_chunk``): its shift from ``ref`` must
+    exceed the bound, the mean bound in bf16 and the max bound in fp32, so
+    that a kernel that skipped a tile would fail."""
     diff = (got.float() - ref.float()).abs()
     err, tol = diff.max().item(), (2e-2 if bf16 else 1e-4) * ref.float().abs().max().item()
     if not err <= tol or not got.isfinite().all():
         raise AssertionError(f"{what}: max err {err} > {tol}")
     out = {"max_abs_err": err, "tol": tol}
+    shift = (plain_dropped().float() - ref.float()).abs()
     if bf16:
         mean_err, mean_tol = diff.mean().item(), MEAN_TOL_BF16 * ref.float().abs().mean().item()
-        shift = (plain_dropped().float() - ref.float()).abs().mean().item()
+        shift = shift.mean().item()
         if not mean_err <= mean_tol < shift:
             raise AssertionError(f"{what}: mean err {mean_err}, bound {mean_tol}, dropped-tile shift {shift}")
         out.update(mean_abs_err=mean_err, mean_tol=mean_tol, dropped_tile_shift=shift)
+    else:
+        shift = shift.max().item()
+        if not tol < shift:
+            raise AssertionError(f"{what}: dropped-tile max shift {shift} within the bound {tol}")
+        out.update(dropped_tile_shift=shift)
     return out
 
 
@@ -246,7 +262,7 @@ def conv_phase(torch, conv):
         bf16 = x.dtype == torch.bfloat16
         plain = lambda: conv.conv3x3_reference(x, wt, b)  # noqa: E731
         ref = plain()
-        dropped = conv.conv3x3_reference(x, drop_tap_chunk(torch, wt), b) if bf16 else None
+        dropped = conv.conv3x3_reference(x, drop_tap_chunk(torch, wt), b)
         plain_ms = cuda_ms(plain, 3, warmup=1)
         x_nchw = x.permute(0, 3, 1, 2)  # NHWC memory: channels_last
         w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -341,6 +357,7 @@ def kernel_phase(torch, fa):
         ("wide", (4, 5184, 1, 512), 5184, torch.bfloat16, "wide"),
         ("wide", (2, 1001, 1, 512), 999, torch.bfloat16, None),
         ("wide", (1, 1000, 1, 512), 999, torch.float32, None),
+        ("wide", (2, 1001, 1, 512), 999, torch.float32, None),
         ("wide", (4, 9216, 1, 512), 9216, torch.bfloat16, None),  # res 1024
         ("wide", (4, 5184, 1, 512), 5184, torch.float32, "wide_fp32"),  # res 768
     ]
@@ -369,6 +386,8 @@ def kernel_phase(torch, fa):
         row = {"name": name, "shape": [b, lq, h, d], "L_k": lk, "dtype": str(dtype).split(".")[-1],
                **errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        if dtype == torch.float32:
+            row["bound_fp32_fma_ms"] = attention_bound_ms(b, lq, lk, h, d, 4, fp32_fma=True)[0]
         log(row)
         if row_key:
             rows[row_key] = row
@@ -378,7 +397,7 @@ def kernel_phase(torch, fa):
 
 FULL_RES = (3, 576, 1024)  # the full preset's res 1024, 16:9
 PAPER_FRAMES = 51  # 3 frames at dilation 25 span 51
-PAPER_RES = (3, 360, 640)  # the paper preset's res 768 cut to 640 (PERF.md section 4)
+PAPER_RES = (3, 432, 768)  # the paper preset's res 768, 16:9
 
 
 def main() -> int:
@@ -590,10 +609,12 @@ def main() -> int:
     kernels = [entry(f"flash_attention_{name}", tpu, flash_src, replaces[name], counted[name], rows[name], True,
                      launches_by_phase=by_phase[name])
                for tpu, name in (("K1", "nomax"), ("K2", "max"), ("K3", "wide"))]
-    # the fp32 instantiations (one warp per query row, FMA), the paper path's
+    # the fp32 instantiations (3xTF32 wgmma after a split pre-pass), the paper path's;
+    # bound_ms is the 3xTF32 bound, bound_fp32_fma_ms the bound of fp32 FMA
     kernels += [entry(f"flash_attention_{name}_fp32", tpu, flash_src, replaces[name],
-                      launches_p[f"flash_attention_{name}"], rows[f"{name}_fp32"], True, design="fp32 fma",
-                      dtype="float32", launches_by_phase={"paper": launches_p[f"flash_attention_{name}"]})
+                      launches_p[f"flash_attention_{name}"], rows[f"{name}_fp32"], True, design="3xtf32 tma+wgmma",
+                      dtype="float32", launches_by_phase={"paper": launches_p[f"flash_attention_{name}"]},
+                      bound_fp32_fma_ms=rows[f"{name}_fp32"]["bound_fp32_fma_ms"])
                 for tpu, name in (("K1", "nomax"), ("K3", "wide"))]
     kernels += [entry(name, tpu, conv_src, f"rollingdepth_tpu/ops/conv3x3.py:{line}", conv_launches[name],
                       conv_rows[name], False)

@@ -16,8 +16,8 @@
 // (as the TPU kernel's ones-column did), the wide kernel the fp32 P.
 //
 // The sweep variants of scripts/bench_flash_variants.py are further
-// instantiations of the narrow template (their fp32 inputs take the FMA
-// kernel; K7 and K9 without bf16_exp compute what rd_flash_max and
+// instantiations of the narrow template (their fp32 inputs take the 3xTF32
+// kernels; K7 and K9 without bf16_exp compute what rd_flash_max and
 // rd_flash_nomax compute, and their wrappers launch those):
 //
 //   rd_flash_exp2           <- _kernel_exp2   running max, fp32 normaliser
@@ -31,12 +31,12 @@
 // exp2 of that is rounded to bf16 as always.
 //
 // Layout: q, k, v and o are [B, L, H, D] contiguous, read in place.  TMA
-// reads them through 4-D tensor maps (d, H, L, B) in boxes of 64 columns:
-// columns past d and rows past L arrive as zeros, and no box crosses a
+// reads them through 4-D tensor maps (d, H, L, B) in boxes of 64 columns
+// (32 in fp32, 128 bytes either way): columns past d and rows past L arrive as zeros, and no box crosses a
 // head or a batch.  bf16 runs on the tensor cores with wgmma (fp32
-// accumulation), fp32 on a plain FMA kernel (one warp per query row).  The
-// PTX (cp.async.bulk.tensor, mbarrier, wgmma.mma_async, setmaxnreg) is
-// wrapped in hopper.cuh.
+// accumulation), fp32 with 3xTF32 wgmma (below).  The PTX
+// (cp.async.bulk.tensor, mbarrier, wgmma.mma_async, setmaxnreg) is wrapped
+// in hopper.cuh.
 //
 // Narrow heads (d < 128, padded to 64 or 128 columns): one CTA per
 // (64*NCW-query tile, batch*head), NCW = 2 consumer warpgroups (3 for the
@@ -65,6 +65,27 @@
 // Whether the SFU binds this design is not measured yet (PERF.md).  The VAE's d = 512 head,
 // [4, 5184, 1, 512], is 0.22 TFLOP (0.22 ms), with 64 multiplies of the
 // tensor cores per exp2.
+//
+// fp32 (every dtype == 1 entry; the paper preset's K1 and K3) runs 3xTF32
+// wgmma: each product as three tf32 products, 3 x 2.48 TFLOP / 495 TFLOP/s
+// = 15.0 ms for K1 at [8, 15552, 5, 64] and 3 x 0.22 / 495 = 1.34 ms for K3
+// at [4, 5184, 1, 512], where fp32 FMA outside the tensor cores (67
+// TFLOP/s) bounds at 37.0 and 3.3 ms.  It replaces a kernel with one warp
+// per query row that reread each K and V tile from L2 for every 8 query
+// rows, loaded both operands of each FMA from shared memory, broadcast P by
+// shuffles, loaded scalars synchronously and used no tensor core.  Here a
+// CTA takes 128 query rows (d <= 64; Q stays in shared memory) or 64 (wide
+// heads), TMA brings 128-byte-swizzled tiles into a ring that a producer
+// warpgroup keeps full, the operands go to wgmma straight from shared
+// memory (and P from registers), and the split into tf32 parts is done once
+// per element by a pre-pass, not once per product.  The tensor core's own
+// fp32 sums drift by about 2^-24 of the sum per wgmma (one accumulator
+// over all key tiles erred by 2.1e-4 of K1's output scale at L_k = 15,552,
+// 1.5e-5 at 1,000), so P V goes to a fresh accumulator for each key tile
+// (64 output columns at a time in the wide kernel) that the consumer adds
+// to the output in fp32.  Keys past L_k give
+// exactly 0 (masked scores, zero v^T), P stays in fp32, the normaliser sums
+// the fp32 P.
 
 #include "hopper.cuh"
 
@@ -523,89 +544,503 @@ flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   }
 }
 
-// ---- fp32: one warp per query row, plain FMA ---------------------------------
+// ---- fp32: 3xTF32 on the tensor cores -----------------------------------------
+//
+// Each fp32 operand x is split into big = x with its low 13 mantissa bits
+// cleared (a tf32 value, so the tensor core reads it exactly, whatever it
+// does with the bits of a raw operand) and small = x - big (exact in fp32);
+// a product is big.big + big.small + small.big, three wgmma, fp32 sums.
+// What is dropped, small.small and the bits of small the tensor core does
+// not read, is below 2^-20 of |x||y| per product.
+//
+// A pre-pass (split_tf32, split_tf32_vt) writes the split operands to a
+// scratch buffer the wrapper allocates: q and k as big and small in their
+// [B, L, H, d] layout, v transposed to [B, H, d, L_p] (tf32 wgmma reads B
+// K-major only, so P V needs V^T with the keys along the rows) with L_p =
+// L_k rounded up to 8 and zero keys past L_k.  Within each group of 8 keys
+// v^T is stored in the order 0 2 4 6 1 3 5 7: the score accumulator gives a
+// thread keys 2 tig and 2 tig + 1 of each 8, the A fragment of a k8 step
+// wants keys tig and tig + 4, and this order makes the two the same keys,
+// so P goes from the softmax to the P V wgmma without a shuffle.
 
-constexpr int F32_ROWS = 8;   // warps (query rows) per CTA
-constexpr int F32_KT = 32;    // keys per tile, one per lane for the scores
+constexpr uint32_t TF32_BIG = 0xFFFFE000u;  // sign, exponent and the 10 mantissa bits of tf32
 
-template <int NPL>
-constexpr int f32_smem_bytes() {
-  return (F32_ROWS + 2 * F32_KT) * (32 * NPL + 1) * 4;
+__device__ __forceinline__ float tf32_big(float x) { return __uint_as_float(__float_as_uint(x) & TF32_BIG); }
+
+__global__ void split_tf32(const float4* __restrict__ x, float4* __restrict__ big, float4* __restrict__ small,
+                           long long n4) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4; i += (long long)gridDim.x * blockDim.x) {
+    const float4 v = x[i];
+    const float4 b = make_float4(tf32_big(v.x), tf32_big(v.y), tf32_big(v.z), tf32_big(v.w));
+    big[i] = b;
+    small[i] = make_float4(v.x - b.x, v.y - b.y, v.z - b.z, v.w - b.w);
+  }
 }
 
-// NPL: output columns per lane (d <= 32 * NPL)
-template <int NPL, bool NO_MAX>
-__global__ void __launch_bounds__(F32_ROWS * 32)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-              float* __restrict__ o, int H, int Lq, int Lk, int d, float scale_log2) {
-  extern __shared__ float smem_f[];
-  constexpr int P = 32 * NPL + 1;  // odd pitch: lane j reading row j is conflict-free
-  float* sQ = smem_f;
-  float* sK = sQ + F32_ROWS * P;
-  float* sV = sK + F32_KT * P;
+// stored position j of a group of 8 keys holds key pv_key(j): 0 2 4 6 1 3 5 7
+__device__ __forceinline__ int pv_key(int j) { return j < 4 ? 2 * j : 2 * j - 7; }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+// v [B, L_k, H, d] -> v^T big and small [B, H, d, L_p]; one 32 x 32 tile a block
+__global__ void __launch_bounds__(256) split_tf32_vt(const float* __restrict__ v, float* __restrict__ vtb,
+                                                     float* __restrict__ vts, int H, int Lk, int d, int Lp) {
+  __shared__ float tile[32][33];
+  const int bh = blockIdx.z, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
   const long long rs = (long long)H * d;
-  const float* qb = q + (long long)b * Lq * rs + (long long)h * d;
-  const float* kb = k + (long long)b * Lk * rs + (long long)h * d;
   const float* vb = v + (long long)b * Lk * rs + (long long)h * d;
-  const int row = blockIdx.x * F32_ROWS + warp;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int key = k0 + r, c = c0 + threadIdx.x;
+    tile[r][threadIdx.x] = (key < Lk && c < d) ? vb[(long long)key * rs + c] : 0.f;
+  }
+  __syncthreads();
+  const long long base = (long long)bh * d * Lp;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int c = c0 + r, kout = k0 + threadIdx.x;
+    if (c >= d || kout >= Lp) continue;
+    const float x = tile[(threadIdx.x & ~7) | pv_key(threadIdx.x & 7)][r];
+    const float big = tf32_big(x);
+    vtb[base + (long long)c * Lp + kout] = big;
+    vts[base + (long long)c * Lp + kout] = x - big;
+  }
+}
 
-  for (int c = lane; c < 32 * NPL; c += 32)
-    sQ[warp * P + c] = (row < Lq && c < d) ? qb[(long long)row * rs + c] : 0.f;
-
-  float m = MASKED, l = 0.f;
-  float acc[NPL];
+// One key tile's softmax for the fp32 kernels: s scaled and masked as in
+// softmax_tile, P kept in fp32 (the normaliser sums it), split into the
+// big and small A fragments of NT k8 steps (keys of step nt: 8 nt ...).
+template <int NT, int NACC, bool NO_MAX>
+__device__ __forceinline__ void softmax_tile_f32(float (&s)[NT * 4], float (&acc)[NACC], uint32_t (&pb)[NT][4],
+                                                 uint32_t (&ps)[NT][4], float (&m_r)[2], float (&l_r)[2], int k0,
+                                                 int Lk, int tig, float scale_log2) {
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < Lk; k0 += F32_KT) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < F32_KT * 32 * NPL; i += F32_ROWS * 32) {
-      const int r = i / (32 * NPL), c = i % (32 * NPL);
-      const bool in = k0 + r < Lk && c < d;
-      sK[r * P + c] = in ? kb[(long long)(k0 + r) * rs + c] : 0.f;
-      sV[r * P + c] = in ? vb[(long long)(k0 + r) * rs + c] : 0.f;
+  for (int i = 0; i < NT * 4; ++i) s[i] *= scale_log2;
+  if (k0 + NT * 8 > Lk) {
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i)
+      if (k0 + (i / 4) * 8 + tig * 2 + (i & 1) >= Lk) s[i] = MASKED;
+  }
+  float mrow[2] = {0.f, 0.f};
+  if (!NO_MAX) {
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * nt + 0], s[4 * nt + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
     }
-    __syncthreads();
-
-    float sc = 0.f;
-    for (int c = 0; c < d; ++c) sc = fmaf(sQ[warp * P + c], sK[lane * P + c], sc);
-    const bool masked = k0 + lane >= Lk;
-    sc = masked ? MASKED : sc * scale_log2;
-
-    float mnew = 0.f;
-    if (!NO_MAX) {
-      mnew = fmaxf(m, sc);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mnew = fmaxf(mnew, __shfl_xor_sync(0xffffffffu, mnew, off));
-      const float corr = fast_exp2(m - mnew);
-      m = mnew;
-      l *= corr;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float corr = fast_exp2(m_r[r] - mx[r]);
+      m_r[r] = mrow[r] = mx[r];
+      l_r[r] *= corr;
 #pragma unroll
-      for (int i = 0; i < NPL; ++i) acc[i] *= corr;
-    }
-    const float p = masked ? 0.f : fast_exp2(sc - mnew);
-    float psum = p;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l += psum;
-    for (int j = 0; j < F32_KT; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, p, j);
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) acc[i] = fmaf(pj, sV[j * P + lane + 32 * i], acc[i]);
+      for (int nt = 0; nt < NACC / 4; ++nt) {
+        acc[4 * nt + 2 * r] *= corr;
+        acc[4 * nt + 2 * r + 1] *= corr;
+      }
     }
   }
-
-  if (row < Lq) {
-    float* orow = o + (long long)b * Lq * rs + (long long)row * rs + (long long)h * d;
-    const float inv = 1.f / l;
 #pragma unroll
-    for (int i = 0; i < NPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) orow[c] = acc[i] * inv;
+  for (int nt = 0; nt < NT; ++nt) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = fast_exp2(s[4 * nt + e] - mrow[e >> 1]);  // masked keys: +0
+    l_r[0] += p[0] + p[1];
+    l_r[1] += p[2] + p[3];
+    // A fragment: (row g, key tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4) of the
+    // stored order, which are keys 2 tig, 2 tig, 2 tig + 1, 2 tig + 1 of the scores
+    const float f[4] = {p[0], p[2], p[1], p[3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float big = tf32_big(f[e]);
+      pb[nt][e] = __float_as_uint(big);
+      ps[nt][e] = __float_as_uint(f[e] - big);
     }
+  }
+}
+
+// store_rows for an fp32 output
+template <int NACC>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[NACC], float (&l_r)[2], float* ob, long long rs,
+                                               int row0, int col0, int Lq, int d, int g, int tig) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+  const float inv0 = 1.f / l_r[0], inv1 = 1.f / l_r[1];
+  const int qa = row0 + g, qc = qa + 8;
+#pragma unroll
+  for (int nt = 0; nt < NACC / 4; ++nt) {
+    const int col = col0 + nt * 8 + tig * 2;
+    if (col >= d) continue;
+    if (qa < Lq)
+      *reinterpret_cast<float2*>(ob + (long long)qa * rs + col) = make_float2(acc[4 * nt] * inv0, acc[4 * nt + 1] * inv0);
+    if (qc < Lq)
+      *reinterpret_cast<float2*>(ob + (long long)qc * rs + col) =
+          make_float2(acc[4 * nt + 2] * inv1, acc[4 * nt + 3] * inv1);
+  }
+}
+
+// Narrow fp32 heads (d <= 64, padded to 64): one CTA per (128-query tile,
+// batch*head), two consumer warpgroups of 64 query rows and one producer
+// warp.  ptxas counts the CTA in whole warpgroups, so a thread still gets
+// 168 registers, and the four 32-register sets of a turn (output, tile
+// accumulator, scores, P) spill a little.  Q's big and small tiles stay in shared memory; a 2-stage
+// ring holds 64-key tiles of K big and small and of V^T big and small
+// (64 KB a stage).  A consumer's turn issues the previous tile's P V and
+// this tile's Q K^T (A and B from shared memory), as the bf16 kernel does.
+constexpr int F_NQ = 128;
+constexpr int F_NK = 64;
+constexpr int F_STAGES = 2;
+constexpr int F_QBLK = F_NQ * 128;  // bytes of one 32-column block of a Q tile
+constexpr int F_KBLK = F_NK * 128;  // ... of a K tile
+constexpr int F_VBLK = 64 * 128;    // one 32-key block of a V^T tile: 64 rows of d
+constexpr int F_KTILE = 2 * F_KBLK;
+constexpr int F_VTILE = F_NK / 32 * F_VBLK;
+constexpr int F_STAGE = 2 * F_KTILE + 2 * F_VTILE;
+constexpr int F_NARROW_SMEM = 4 * F_QBLK + F_STAGES * F_STAGE + (1 + 3 * F_STAGES) * 8 + 1024;
+
+template <bool NO_MAX>
+__global__ void __launch_bounds__(288, 1)
+flash_fwd_narrow_f32(const __grid_constant__ CUtensorMap tqb, const __grid_constant__ CUtensorMap tqs,
+                     const __grid_constant__ CUtensorMap tkb, const __grid_constant__ CUtensorMap tks,
+                     const __grid_constant__ CUtensorMap tvb, const __grid_constant__ CUtensorMap tvs,
+                     float* __restrict__ o, int H, int Lq, int Lk, int d, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQb = align_1024(smem_raw);
+  unsigned char* sQs = sQb + 2 * F_QBLK;
+  unsigned char* sStage = sQs + 2 * F_QBLK;  // stage s: Kb, Ks, Vb^T, Vs^T
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sStage + F_STAGES * F_STAGE);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + F_STAGES;
+  uint64_t* empty = full_v + F_STAGES;
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * F_NQ;
+  const int n_kt = (Lk + F_NK - 1) / F_NK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // the producer: one warp after the two consumer warpgroups, one thread of it
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(full_q, 4 * F_QBLK);
+      for (int c = 0; c < 2; ++c) {
+        tma_load_4d(sQb + c * F_QBLK, &tqb, full_q, 32 * c, h, q0, b);
+        tma_load_4d(sQs + c * F_QBLK, &tqs, full_q, 32 * c, h, q0, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % F_STAGES;
+        unsigned char* st = sStage + s * F_STAGE;
+        if (j >= F_STAGES) mbar_wait(empty + s, ((j / F_STAGES) + 1) & 1);
+        mbar_expect_tx(full_k + s, 2 * F_KTILE);
+        for (int c = 0; c < 2; ++c) {
+          tma_load_4d(st + c * F_KBLK, &tkb, full_k + s, 32 * c, h, j * F_NK, b);
+          tma_load_4d(st + F_KTILE + c * F_KBLK, &tks, full_k + s, 32 * c, h, j * F_NK, b);
+        }
+        mbar_expect_tx(full_v + s, 2 * F_VTILE);
+        for (int c = 0; c < F_NK / 32; ++c) {
+          tma_load_4d(st + 2 * F_KTILE + c * F_VBLK, &tvb, full_v + s, j * F_NK + 32 * c, 0, h, b);
+          tma_load_4d(st + 2 * F_KTILE + F_VTILE + c * F_VBLK, &tvs, full_v + s, j * F_NK + 32 * c, 0, h, b);
+        }
+      }
+    }
+  } else {
+    const int cw = wg;
+    const int ct = threadIdx.x - 128 * wg;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, tig = lane % 4;
+
+    // acc takes one key tile's P V from wgmma and is added to o_acc in fp32
+    float o_acc[32], acc[32], sacc[F_NK / 2];
+    uint32_t pb[F_NK / 8][4], ps[F_NK / 8][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_acc[i] = acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < F_NK / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < F_NK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pb[i][e] = ps[i][e] = 0u;
+    float m_r[2] = {MASKED, MASKED};
+    float l_r[2] = {0.f, 0.f};
+
+    auto begin = [&]() {
+      fence_regs(acc);
+      fence_regs(sacc);
+      fence_regs(pb);
+      fence_regs(ps);
+      wgmma_fence();
+    };
+    auto end = [&]() {
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(sacc);
+      fence_regs(pb);
+      fence_regs(ps);
+    };
+    auto qk_products = [&](int s) {
+      const unsigned char* st = sStage + s * F_STAGE;
+      uint64_t dqb = make_desc(sQb + cw * 64 * 128, 16, 1024), dqs = make_desc(sQs + cw * 64 * 128, 16, 1024);
+      uint64_t dkb = make_desc(st, 16, 1024), dks = make_desc(st + F_KTILE, 16, 1024);
+      opaque(dqb);
+      opaque(dqs);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int off = ((kk / 4) * F_QBLK + (kk % 4) * 32) >> 4;
+        const int koff = ((kk / 4) * F_KBLK + (kk % 4) * 32) >> 4;
+        wgmma_tf32_ss_n64(sacc, dqs + off, dkb + koff, kk > 0);
+        wgmma_tf32_ss_n64(sacc, dqb + off, dks + koff, 1);
+        wgmma_tf32_ss_n64(sacc, dqb + off, dkb + koff, 1);
+      }
+    };
+    auto pv_products = [&](int s) {
+      const unsigned char* st = sStage + s * F_STAGE + 2 * F_KTILE;
+      uint64_t dvb = make_desc(st, 16, 1024), dvs = make_desc(st + F_VTILE, 16, 1024);
+      opaque(dvb);
+#pragma unroll
+      for (int kk = 0; kk < F_NK / 8; ++kk) {
+        const int off = ((kk / 4) * F_VBLK + (kk % 4) * 32) >> 4;
+        wgmma_tf32_rs_n64(acc, ps[kk], dvb + off);
+        wgmma_tf32_rs_n64(acc, pb[kk], dvs + off);
+        wgmma_tf32_rs_n64(acc, pb[kk], dvb + off);
+      }
+    };
+    auto softmax = [&](int j) {
+      softmax_tile_f32<F_NK / 8, 32, NO_MAX>(sacc, o_acc, pb, ps, m_r, l_r, j * F_NK, Lk, tig, scale_log2);
+    };
+    auto zero_acc = [&]() {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    };
+    auto add_acc = [&]() {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o_acc[i] += acc[i];
+    };
+
+    mbar_wait(full_q, 0);
+    mbar_wait(full_k, 0);
+    begin();
+    qk_products(0);
+    end();
+    softmax(0);
+    for (int j = 1; j < n_kt; ++j) {
+      const int s = j % F_STAGES, sp = (j - 1) % F_STAGES;
+      mbar_wait(full_k + s, (j / F_STAGES) & 1);
+      mbar_wait(full_v + sp, ((j - 1) / F_STAGES) & 1);
+      zero_acc();
+      begin();
+      pv_products(sp);
+      qk_products(s);
+      end();
+      mbar_arrive(empty + sp);
+      add_acc();
+      softmax(j);
+    }
+    const int sl = (n_kt - 1) % F_STAGES;
+    mbar_wait(full_v + sl, ((n_kt - 1) / F_STAGES) & 1);
+    zero_acc();
+    begin();
+    pv_products(sl);
+    end();
+    add_acc();
+
+    const long long rs = (long long)H * d;
+    float* ob = o + (long long)b * Lq * rs + (long long)h * d;
+    store_rows_f32<32>(o_acc, l_r, ob, rs, q0 + cw * 64 + warp * 16, 0, Lq, d, g, tig);
+  }
+}
+
+// Wide fp32 heads (64 < d <= 512, padded to 128, 256 or 512): one CTA per
+// (64-query tile, batch*head), 32-key tiles.  NCWG consumer warpgroups
+// each own DV = DP / NCWG output columns (a 64 x DV fp32 accumulator) and
+// the same share of the q.k contraction; for d = 512 the two partial score
+// tiles are summed through shared memory, as in the bf16 kernel.  Q does
+// not fit in shared memory beside the ring (64 x 512 fp32, big and small,
+// is 256 KB), so the contraction streams: for each key tile the ring
+// brings DV / 32 pieces of 32 columns (Q big and small, 64 rows; K big and
+// small, 32 keys; Q is read again from L2 for each key tile), then DV / 64
+// pieces of V^T big and small (64 output columns x 32 keys).  A stage is
+// 32 KB for each consumer.  The producer is one warp, not a warpgroup: a
+// thread gets 255 registers with one consumer, 168 with two (ptxas counts
+// whole warpgroups), where the 64 x 256 output alone takes 128 and d = 512
+// spills a little.
+constexpr int FW_Q = 64;
+constexpr int FW_K = 32;
+constexpr int FW_SLOT = 32768;
+constexpr int FW_XSLOT = 16 * 128;  // floats of one warpgroup's partial score tile
+
+template <int NCWG>
+__host__ __device__ constexpr int fw_stages() {
+  return NCWG == 2 ? 3 : 6;
+}
+
+template <int NCWG>
+constexpr int wide_f32_smem_bytes() {
+  return fw_stages<NCWG>() * NCWG * FW_SLOT + (NCWG == 2 ? 4 * FW_XSLOT * 4 : 0) + 2 * fw_stages<NCWG>() * 8 + 1024;
+}
+
+template <int DP, int NCWG, bool NO_MAX>
+__global__ void __launch_bounds__(128 * NCWG + 32, 1)
+flash_fwd_wide_f32(const __grid_constant__ CUtensorMap tqb, const __grid_constant__ CUtensorMap tqs,
+                   const __grid_constant__ CUtensorMap tkb, const __grid_constant__ CUtensorMap tks,
+                   const __grid_constant__ CUtensorMap tvb, const __grid_constant__ CUtensorMap tvs,
+                   float* __restrict__ o, int H, int Lq, int Lk, int d, float scale_log2) {
+  constexpr int DV = DP / NCWG;
+  constexpr int NQK = DV / 32;   // Q K^T pieces a key tile
+  constexpr int NPV = DV / 64;   // P V pieces a key tile
+  constexpr int S = fw_stages<NCWG>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sStage = align_1024(smem_raw);  // stage s, consumer cw: sStage + (s * NCWG + cw) * FW_SLOT
+  float* xbuf = reinterpret_cast<float*>(sStage + S * NCWG * FW_SLOT);  // [2 tiles][2 warpgroups][FW_XSLOT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sStage + S * NCWG * FW_SLOT + (NCWG == 2 ? 4 * FW_XSLOT * 4 : 0));
+  uint64_t* empty = full + S;
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * FW_Q;
+  const int n_kt = (Lk + FW_K - 1) / FW_K;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * NCWG);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NCWG) {
+    // the producer: one warp after the consumer warpgroups, one thread of it
+    if (threadIdx.x == 128 * NCWG) {
+      int t = 0;
+      for (int j = 0; j < n_kt; ++j) {
+        for (int p = 0; p < NQK + NPV; ++p, ++t) {
+          const int s = t % S;
+          if (t >= S) mbar_wait(empty + s, ((t / S) + 1) & 1);
+          unsigned char* st = sStage + s * NCWG * FW_SLOT;
+          if (p < NQK) {
+            mbar_expect_tx(full + s, NCWG * 24576);
+            for (int cw = 0; cw < NCWG; ++cw) {
+              unsigned char* slot = st + cw * FW_SLOT;
+              const int col = cw * DV + 32 * p;
+              tma_load_4d(slot, &tqb, full + s, col, h, q0, b);
+              tma_load_4d(slot + 8192, &tqs, full + s, col, h, q0, b);
+              tma_load_4d(slot + 16384, &tkb, full + s, col, h, j * FW_K, b);
+              tma_load_4d(slot + 20480, &tks, full + s, col, h, j * FW_K, b);
+            }
+          } else {
+            mbar_expect_tx(full + s, NCWG * 16384);
+            for (int cw = 0; cw < NCWG; ++cw) {
+              unsigned char* slot = st + cw * FW_SLOT;
+              const int row = cw * DV + 64 * (p - NQK);
+              tma_load_4d(slot, &tvb, full + s, j * FW_K, row, h, b);
+              tma_load_4d(slot + 8192, &tvs, full + s, j * FW_K, row, h, b);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    const int cw = wg;
+    const int ct = threadIdx.x - 128 * wg;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, tig = lane % 4;
+
+    // acc takes one piece's P V from wgmma and is added to o_acc in fp32
+    float o_acc[DV / 2], acc[32], sacc[16];
+    uint32_t pb[4][4], ps[4][4];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sacc[i] = 0.f;
+    float m_r[2] = {MASKED, MASKED};
+    float l_r[2] = {0.f, 0.f};
+
+    int t = 0;
+    for (int j = 0; j < n_kt; ++j) {
+      // this warpgroup's share of S = Q K^T, NQK pieces; the wait for piece
+      // p - 1 follows the issue of piece p
+      int prev = 0;
+#pragma unroll
+      for (int p = 0; p < NQK; ++p, ++t) {
+        const int s = t % S;
+        mbar_wait(full + s, (t / S) & 1);
+        const unsigned char* slot = sStage + (s * NCWG + cw) * FW_SLOT;
+        fence_regs(sacc);
+        wgmma_fence();
+        const uint64_t dqb = make_desc(slot, 16, 1024), dqs = make_desc(slot + 8192, 16, 1024);
+        const uint64_t dkb = make_desc(slot + 16384, 16, 1024), dks = make_desc(slot + 20480, 16, 1024);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_tf32_ss_n32(sacc, dqs + 2 * kk, dkb + 2 * kk, p > 0 || kk > 0);
+          wgmma_tf32_ss_n32(sacc, dqb + 2 * kk, dks + 2 * kk, 1);
+          wgmma_tf32_ss_n32(sacc, dqb + 2 * kk, dkb + 2 * kk, 1);
+        }
+        wgmma_commit();
+        if (p > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(empty + prev);
+        }
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      mbar_arrive(empty + prev);
+      if constexpr (NCWG == 2) {
+        float* mine = xbuf + ((j & 1) * 2 + cw) * FW_XSLOT;
+        const float* other = xbuf + ((j & 1) * 2 + 1 - cw) * FW_XSLOT;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) mine[i * 128 + ct] = sacc[i];
+        bar_sync(1, 256);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) sacc[i] = sacc[i] + other[i * 128 + ct];
+      }
+      softmax_tile_f32<4, DV / 2, NO_MAX>(sacc, o_acc, pb, ps, m_r, l_r, j * FW_K, Lk, tig, scale_log2);
+
+      // O += P V, NPV pieces of 64 output columns
+#pragma unroll
+      for (int p = 0; p < NPV; ++p, ++t) {
+        const int s = t % S;
+        mbar_wait(full + s, (t / S) & 1);
+        const unsigned char* slot = sStage + (s * NCWG + cw) * FW_SLOT;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        fence_regs(acc);
+        fence_regs(pb);
+        fence_regs(ps);
+        wgmma_fence();
+        const uint64_t dvb = make_desc(slot, 16, 1024), dvs = make_desc(slot + 8192, 16, 1024);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_tf32_rs_n64(acc, ps[kk], dvb + 2 * kk);
+          wgmma_tf32_rs_n64(acc, pb[kk], dvs + 2 * kk);
+          wgmma_tf32_rs_n64(acc, pb[kk], dvb + 2 * kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pb);
+        fence_regs(ps);
+        mbar_arrive(empty + s);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o_acc[32 * p + i] += acc[i];
+      }
+    }
+
+    const long long rs = (long long)H * d;
+    float* ob = o + (long long)b * Lq * rs + (long long)h * d;
+    store_rows_f32<DV / 2>(o_acc, l_r, ob, rs, q0 + warp * 16, cw * DV, Lq, d, g, tig);
   }
 }
 
@@ -650,27 +1085,94 @@ int launch_wide_dp(const void* q, const void* k, const void* v, void* o, int B, 
   return (int)cudaGetLastError();
 }
 
-template <int NPL, bool NO_MAX>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
-               int d, float scale_log2, cudaStream_t stream) {
-  auto kern = flash_fwd_f32<NPL, NO_MAX>;
-  constexpr int smem = f32_smem_bytes<NPL>();
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + F32_ROWS - 1) / F32_ROWS, B * H, 1);
-  kern<<<grid, F32_ROWS * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Lq, Lk, d, scale_log2);
+// The split operands of an fp32 launch in the wrapper's scratch buffer:
+// q big, q small, k big, k small ([B, L, H, d] each), v^T big, v^T small
+// ([B, H, d, L_p] each).
+struct F32Split {
+  float *qb, *qs, *kb, *ks, *vb, *vs;
+  int Lp;
+};
+
+long long f32_scratch_floats(int B, int H, int Lq, int Lk, int d) {
+  const long long lp = (Lk + 7) / 8 * 8;
+  return 2LL * B * H * d * ((long long)Lq + Lk + lp);
+}
+
+int split_f32(F32Split& sp, const void* q, const void* k, const void* v, void* scratch, int B, int H, int Lq,
+              int Lk, int d, cudaStream_t st) {
+  const long long nq = (long long)B * Lq * H * d, nk = (long long)B * Lk * H * d;
+  sp.Lp = (Lk + 7) / 8 * 8;
+  sp.qb = static_cast<float*>(scratch);
+  sp.qs = sp.qb + nq;
+  sp.kb = sp.qs + nq;
+  sp.ks = sp.kb + nk;
+  sp.vb = sp.ks + nk;
+  sp.vs = sp.vb + (long long)B * H * d * sp.Lp;
+  for (int i = 0; i < 2; ++i) {
+    const long long n4 = (i == 0 ? nq : nk) / 4;
+    const int blocks = (int)(n4 + 255 < 132LL * 8 * 256 ? (n4 + 255) / 256 : 132 * 8);
+    split_tf32<<<blocks, 256, 0, st>>>(static_cast<const float4*>(i == 0 ? q : k),
+                                       reinterpret_cast<float4*>(i == 0 ? sp.qb : sp.kb),
+                                       reinterpret_cast<float4*>(i == 0 ? sp.qs : sp.ks), n4);
+  }
+  split_tf32_vt<<<dim3((sp.Lp + 31) / 32, (d + 31) / 32, B * H), dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(v), sp.vb, sp.vs, H, Lk, d, sp.Lp);
   return (int)cudaGetLastError();
 }
 
+// The six tensor maps of an fp32 launch: q in boxes of q_rows, k of
+// k_rows, v^T of 32 keys x vt_rows.
+bool encode_f32_split(CUtensorMap (&maps)[6], const F32Split& sp, int B, int H, int Lq, int Lk, int d, int q_rows,
+                      int k_rows, int vt_rows) {
+  using namespace hopper_host;
+  return encode_f32_bhld(&maps[0], sp.qb, B, Lq, H, d, q_rows) &&
+         encode_f32_bhld(&maps[1], sp.qs, B, Lq, H, d, q_rows) &&
+         encode_f32_bhld(&maps[2], sp.kb, B, Lk, H, d, k_rows) &&
+         encode_f32_bhld(&maps[3], sp.ks, B, Lk, H, d, k_rows) &&
+         encode_f32_bhdl(&maps[4], sp.vb, B, H, d, sp.Lp, vt_rows) &&
+         encode_f32_bhdl(&maps[5], sp.vs, B, H, d, sp.Lp, vt_rows);
+}
+
 template <bool NO_MAX>
-int launch_f32_any(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
-                   int Lk, int d, float sl, cudaStream_t st) {
-  if (d <= 64) return launch_f32<2, NO_MAX>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
-  if (d <= 128) return launch_f32<4, NO_MAX>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
-  if (d <= 256) return launch_f32<8, NO_MAX>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
-  return launch_f32<16, NO_MAX>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
+int launch_narrow_f32(const F32Split& sp, void* o, int B, int H, int Lq, int Lk, int d, float sl, cudaStream_t st) {
+  CUtensorMap m[6];
+  if (!encode_f32_split(m, sp, B, H, Lq, Lk, d, F_NQ, F_NK, 64)) return ERR_TENSOR_MAP;
+  auto kern = flash_fwd_narrow_f32<NO_MAX>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, F_NARROW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Lq + F_NQ - 1) / F_NQ, B * H);
+  kern<<<grid, 288, F_NARROW_SMEM, st>>>(m[0], m[1], m[2], m[3], m[4], m[5], static_cast<float*>(o), H, Lq, Lk, d,
+                                         sl);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, int NCWG, bool NO_MAX>
+int launch_wide_f32(const F32Split& sp, void* o, int B, int H, int Lq, int Lk, int d, float sl, cudaStream_t st) {
+  CUtensorMap m[6];
+  if (!encode_f32_split(m, sp, B, H, Lq, Lk, d, FW_Q, FW_K, 64)) return ERR_TENSOR_MAP;
+  auto kern = flash_fwd_wide_f32<DP, NCWG, NO_MAX>;
+  constexpr int smem = wide_f32_smem_bytes<NCWG>();
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Lq + FW_Q - 1) / FW_Q, B * H);
+  kern<<<grid, 128 * NCWG + 32, smem, st>>>(m[0], m[1], m[2], m[3], m[4], m[5], static_cast<float*>(o), H, Lq, Lk,
+                                            d, sl);
+  return (int)cudaGetLastError();
+}
+
+// Every fp32 entry: the split pre-pass, then the narrow kernel for d <= 64
+// or the wide one.  d % 8 == 0, d <= 512.
+template <bool NO_MAX>
+int launch_f32(const void* q, const void* k, const void* v, void* o, void* scratch, int B, int H, int Lq, int Lk,
+               int d, float sl, cudaStream_t st) {
+  if (d % 8 != 0 || d > 512 || scratch == nullptr) return ERR_UNSUPPORTED;
+  F32Split sp;
+  const int err = split_f32(sp, q, k, v, scratch, B, H, Lq, Lk, d, st);
+  if (err != 0) return err;
+  if (d <= 64) return launch_narrow_f32<NO_MAX>(sp, o, B, H, Lq, Lk, d, sl, st);
+  if (d <= 128) return launch_wide_f32<128, 1, NO_MAX>(sp, o, B, H, Lq, Lk, d, sl, st);
+  if (d <= 256) return launch_wide_f32<256, 1, NO_MAX>(sp, o, B, H, Lq, Lk, d, sl, st);
+  return launch_wide_f32<512, 2, NO_MAX>(sp, o, B, H, Lq, Lk, d, sl, st);
 }
 
 // A narrow bf16 head (d % 8 == 0, d < 128): 64 or 128 padded columns.
@@ -685,36 +1187,32 @@ int launch_narrow(const void* q, const void* k, const void* v, void* o, int B, i
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32.  Returns cudaGetLastError() after the launch,
-// -1 for a shape the kernel does not take (the wrapper checks first), or
-// -2 if the driver refuses a tensor map.
-extern "C" int rd_flash_nomax(int dtype, const void* q, const void* k, const void* v, void* o,
+// dtype: 0 = bf16, 1 = fp32.  scratch: rd_flash_f32_scratch_bytes() bytes
+// for fp32 (the split operands), unused for bf16.  Returns
+// cudaGetLastError() after the launch, -1 for a shape the kernel does not
+// take (the wrapper checks first), or -2 if the driver refuses a tensor map.
+extern "C" long long rd_flash_f32_scratch_bytes(int B, int H, int Lq, int Lk, int d) {
+  return 4 * f32_scratch_floats(B, H, Lq, Lk, d);
+}
+
+extern "C" int rd_flash_nomax(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch,
                               int B, int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (d > 512) return ERR_UNSUPPORTED;
-    return launch_f32_any<true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  }
+  if (dtype == 1) return launch_f32<true>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
   return launch_narrow<true, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
 }
 
-extern "C" int rd_flash_max(int dtype, const void* q, const void* k, const void* v, void* o,
+extern "C" int rd_flash_max(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch,
                             int B, int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (d > 512) return ERR_UNSUPPORTED;
-    return launch_f32_any<false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  }
+  if (dtype == 1) return launch_f32<false>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
   return launch_narrow<false, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
 }
 
-extern "C" int rd_flash_wide(int dtype, const void* q, const void* k, const void* v, void* o,
+extern "C" int rd_flash_wide(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch,
                              int B, int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (d > 512) return ERR_UNSUPPORTED;
-    return launch_f32_any<false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  }
+  if (dtype == 1) return launch_f32<false>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
   if (d % 8 != 0 || d > 512) return ERR_UNSUPPORTED;
   if (d <= 128) return launch_wide_dp<128, 1>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
   if (d <= 256) return launch_wide_dp<256, 1>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
@@ -722,18 +1220,15 @@ extern "C" int rd_flash_wide(int dtype, const void* q, const void* k, const void
 }
 
 // K6: running max, fp32 normaliser (the sum of unrounded P), narrow heads.
-extern "C" int rd_flash_exp2(int dtype, const void* q, const void* k, const void* v, void* o, int B,
+extern "C" int rd_flash_exp2(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch, int B,
                              int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (d > 512) return ERR_UNSUPPORTED;
-    return launch_f32_any<false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  }
+  if (dtype == 1) return launch_f32<false>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
   return launch_narrow<false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
 }
 
 // K8: q pre-scaled and rounded, bf16 scores, running max; bf16 only.
-extern "C" int rd_flash_bf16(int dtype, const void* q, const void* k, const void* v, void* o, int B,
+extern "C" int rd_flash_bf16(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch, int B,
                              int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   if (dtype != 0) return ERR_UNSUPPORTED;
   return launch_narrow<false, true, true, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2,
@@ -741,7 +1236,7 @@ extern "C" int rd_flash_bf16(int dtype, const void* q, const void* k, const void
 }
 
 // K9 with bf16_exp: no max, p = exp2 of the score rounded to bf16; bf16 only.
-extern "C" int rd_flash_nomax_bf16exp(int dtype, const void* q, const void* k, const void* v, void* o,
+extern "C" int rd_flash_nomax_bf16exp(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch,
                                       int B, int H, int Lq, int Lk, int d, float scale_log2,
                                       void* stream) {
   if (dtype != 0) return ERR_UNSUPPORTED;
@@ -750,12 +1245,9 @@ extern "C" int rd_flash_nomax_bf16exp(int dtype, const void* q, const void* k, c
 }
 
 // K10: q pre-scaled and rounded, no max; padded keys get p = 0.
-extern "C" int rd_flash_nomask(int dtype, const void* q, const void* k, const void* v, void* o, int B,
+extern "C" int rd_flash_nomask(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch, int B,
                                int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (d > 512) return ERR_UNSUPPORTED;
-    return launch_f32_any<true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
-  }
+  if (dtype == 1) return launch_f32<true>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
   return launch_narrow<true, true, true, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
 }

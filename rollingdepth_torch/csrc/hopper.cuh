@@ -4,7 +4,7 @@
 // named barriers and register reallocation between warpgroups.  Plain PTX,
 // no library.
 //
-// Shared-memory tiles are [rows][64] bf16 blocks of 128-byte rows, written by
+// Shared-memory tiles are [rows][64] bf16 (or [rows][32] fp32) blocks of 128-byte rows, written by
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B and read by wgmma through descriptors
 // with the matching 128-byte swizzle.  Each block starts on a 1024-byte
 // boundary, so the descriptors' base offset is 0.
@@ -303,6 +303,63 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+
+// ---- wgmma on tf32 -------------------------------------------------------------
+//
+// k8: a 32-byte step of the contraction, as k16 is for bf16, so the same
+// 128-byte-swizzled tiles of 32 fp32 a row and the same descriptors serve.
+// tf32 takes no transposed operand: A and B are both K-major.  The A
+// fragment in registers of warp w: a[0] row 16w + g, column tig; a[1] row
+// + 8; a[2] column tig + 4; a[3] both (g = lane / 4, tig = lane % 4).  The
+// tensor core reads the top 19 bits of each 32-bit operand.
+
+// D[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 8] B[8 x 64], tf32, A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 }  // namespace hopper
 
 // ---- host: tensor maps ----------------------------------------------------------
@@ -355,6 +412,36 @@ inline bool encode_bf16_bhld(CUtensorMap* map, const void* base, int B, int L, i
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)H * d * 2, (cuuint64_t)L * H * d * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   return encode_bf16(map, base, 4, dims, strides, box);
+}
+
+
+// The same for a contiguous fp32 [B, L, H, d] tensor: boxes of 32 columns
+// (one 128-byte row) x 1 head x `rows` rows x 1 batch.  d % 4 == 0.
+inline bool encode_f32_bhld(CUtensorMap* map, const void* base, int B, int L, int H, int d, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 4, (cuuint64_t)H * d * 4, (cuuint64_t)L * H * d * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map over a contiguous fp32 [B, H, d, Lp] tensor (a transposed k or v,
+// Lp % 4 == 0), seen as 4-D (Lp, d, H, B): boxes of 32 keys x `rows` rows
+// of d.  Rows past d and keys past Lp read as zero.
+inline bool encode_f32_bhdl(CUtensorMap* map, const void* base, int B, int H, int d, int Lp, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)Lp, (cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Lp * 4, (cuuint64_t)d * Lp * 4, (cuuint64_t)H * d * Lp * 4};
+  const cuuint32_t box[4] = {32, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper_host

@@ -24,7 +24,7 @@ import torch
 
 LOG2E = 1.4426950408889634
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def attention_exp2_reference(
@@ -94,19 +94,26 @@ def _launch(symbol: str, q, k, v, scale: Optional[float]) -> torch.Tensor:
             raise ValueError(f"{symbol}: inputs must be 16-byte aligned")
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    if q.dtype == torch.bfloat16 and d % 8:
-        raise ValueError(f"{symbol}: bf16 head dim must be a multiple of 8, got {d}")
+    if d % 8 or d > 512:
+        raise ValueError(f"{symbol}: head dim must be a multiple of 8 up to 512, got {d}")
     if b * h > 65535 or lq == 0 or lk == 0:
         raise ValueError(f"{symbol}: unsupported shape {tuple(q.shape)} / L_k={lk}")
-    fn = getattr(load("flash_attn"), symbol)
+    lib = load("flash_attn")
+    fn = getattr(lib, symbol)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     o = torch.empty_like(q)
+    scratch = None
+    if q.dtype == torch.float32:
+        # the fp32 kernels' split operands (q, k and v^T as tf32 big and small parts)
+        lib.rd_flash_f32_scratch_bytes.argtypes = [ctypes.c_int] * 5
+        lib.rd_flash_f32_scratch_bytes.restype = ctypes.c_longlong
+        scratch = torch.empty(lib.rd_flash_f32_scratch_bytes(b, h, lq, lk, d), dtype=torch.uint8, device=q.device)
     sl = (d**-0.5 if scale is None else scale) * LOG2E
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(0 if q.dtype == torch.bfloat16 else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 o.data_ptr(), b, h, lq, lk, d, sl, stream)
+                 o.data_ptr(), None if scratch is None else scratch.data_ptr(), b, h, lq, lk, d, sl, stream)
     if err != 0:
         why = {-1: "unsupported shape", -2: "the driver refused a TMA tensor map"}.get(err, f"CUDA error {err}")
         raise RuntimeError(f"{symbol} failed: {why} at q{tuple(q.shape)} L_k={lk} {q.dtype}")
@@ -116,7 +123,7 @@ def _launch(symbol: str, q, k, v, scale: Optional[float]) -> torch.Tensor:
 def flash_attention_nomax(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """K1, max-free: ``p = exp2(s)``.  Contract: |s| < ~120 in the log2
     domain (fp32 exp2 overflows at 128), enforced by ``ops/score_probe.py``.
-    The CUDA kernel takes d < 128 (bf16, d % 8 == 0) or d <= 512 (fp32)."""
+    The CUDA kernel takes d % 8 == 0 and d < 128 (bf16) or d <= 512 (fp32)."""
     _check(q, k, v, "flash_attention_nomax")
     if q.device.type == "cpu":
         return attention_exp2_reference(q, k, v, scale, no_max=True, sum_rounded=True)

@@ -16,8 +16,8 @@ scale is ``D**-0.5``.  On a CUDA tensor a wrapper launches its kernel or
 raises; on a CPU tensor it runs ``attention_exp2_reference`` with the
 variant's roundings.  Each wrapper counts its launches in ``.launches``;
 ``flash_nomax(bf16_exp=True)`` counts in ``flash_nomax_bf16_exp.launches``.
-bf16 heads must be narrow (d < 128, d % 8 == 0); fp32 takes the FMA
-kernels, except ``flash_bf16`` and the ``bf16_exp`` kernel, which take
+bf16 heads must be narrow (d < 128, d % 8 == 0); fp32 takes the 3xTF32
+kernels (d % 8 == 0, d <= 512), except ``flash_bf16`` and the ``bf16_exp`` kernel, which take
 bf16 only.
 """
 

@@ -51,7 +51,8 @@ class RollingDepthOutput:
     def __init__(self, input_frames, depth_pred, depth_coaligned, snippet_ls=None):
         self.input_frames = input_frames  # [N, 3, H, W]: uint8, or float in [-1, 1]
         self.depth_pred = depth_pred  # [N, 1, H, W] in [-1, 1]
-        self.depth_coaligned = depth_coaligned  # [N, 1, H, W]
+        # [N, 1, H, W]; None when refinement read the merged latent and the output stays on the device
+        self.depth_coaligned = depth_coaligned
         # per dilation [S, n, 1, H, W]; empty on the latent path, which never decodes a window
         self.snippet_ls: List = [] if snippet_ls is None else snippet_ls
         self._input_rgb = None
@@ -253,8 +254,14 @@ class RollingDepthPipeline:
                 merged_lat, _, _, self.last_loss_history = DepthAligner(AlignerConfig(**lat_kwargs)).run(
                     lat_ls, dilations, restore_shift=True, channels_last=True, index_mats=idx_ls, seq_len=seq_len,
                 )  # [N, h, w, 4]
-            with self._phase("decode", timings, verbose):
-                depth_coaligned = self._decode(merged_lat.to(dtype), max_vae_bs, chunks)[:, None].float()
+            if refine_latent_direct and not fetch_output:
+                # refinement reads the merged latent itself, and a caller that
+                # keeps the output on the device asks for no coaligned depth:
+                # no decode, depth_coaligned comes back None (as in the JAX package)
+                depth_coaligned = None
+            else:
+                with self._phase("decode", timings, verbose):
+                    depth_coaligned = self._decode(merged_lat.to(dtype), max_vae_bs, chunks)[:, None].float()
         else:
             # decode every window's frames (the JAX package counts this in snippet_infer)
             with self._phase("snippet_decode", timings, verbose):
@@ -270,8 +277,9 @@ class RollingDepthPipeline:
                 ).run(group_ls, dilations, index_mats=idx_ls, seq_len=seq_len)  # [N, 1, H, W]
 
         # ---- 5. min-max normalise to [-1, 1]
-        depth_coaligned = (depth_coaligned - depth_coaligned.amin()) / (
-            depth_coaligned.amax() - depth_coaligned.amin()) * 2.0 - 1.0
+        if depth_coaligned is not None:
+            depth_coaligned = (depth_coaligned - depth_coaligned.amin()) / (
+                depth_coaligned.amax() - depth_coaligned.amin()) * 2.0 - 1.0
 
         # ---- 6. refinement
         if refine_step > 0:

@@ -7,7 +7,9 @@ Builds the full-width pipeline with seeded random weights
 (``utils/synthetic.py``) in the preset's dtype, runs the preset (default
 ``fast``) once to warm up, then once under ``torch.profiler`` with CPU and
 CUDA activities.  Frames default to 16:9 at the preset's resolution
-(432x768, or 576x1024 for ``fast1024`` and ``full``).  For each phase
+(432x768, or 576x1024 for ``fast1024`` and ``full``), TF32 off.  The
+warm-up call's wall time is kept too (``warmup_wall_s``: no profiler, but
+first-use costs).  For each phase
 (the pipeline's ``rollingdepth.<phase>`` spans) it reports the host time,
 the device time covered by kernels inside the span and the device's idle
 share; then the kernels by total device time.  Prints JSON lines and writes
@@ -53,12 +55,17 @@ def main(argv=None) -> int:
     height = args.height or width * 9 // 16
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    # fp32 in full fp32, as chip_smoke.py and chunk_times run it: TF32 off for matmuls and cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     pipe, _ = random_depth_pipeline("cuda", DTYPE_MAP[settings.dtype], seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     frames = torch.randint(0, 256, (args.frames, 3, height, width), generator=gen,
                            device="cuda", dtype=torch.uint8)
+    t0 = time.perf_counter()
     pipe(input_frames=frames, **call)
     torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0  # the same call without the profiler, first-use costs included
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -82,6 +89,7 @@ def main(argv=None) -> int:
         return sum(max(0.0, min(hi, b) - max(lo, a)) for lo, hi in merged)
 
     result = {"card": smi, "preset": args.preset, "frames": args.frames, "res": [height, width], "wall_s": wall_s,
+              "warmup_wall_s": warmup_s, "attention": os.environ.get("ROLLINGDEPTH_ATTN", "auto"),
               "device_kernels_seen": len(kernels), "phases": {}}
     for name, r in spans.items():
         host_us = r.end - r.start
@@ -103,6 +111,8 @@ def main(argv=None) -> int:
     result["kernels_by_device_ms"] = [{"name": n[:120], "count": c, "ms": us / 1e3} for n, (c, us) in top]
     for key in ("phases", "call"):
         print(json.dumps({key: result.get(key), "card": smi}), flush=True)
+    print(json.dumps({k: result[k] for k in ("wall_s", "warmup_wall_s", "attention", "preset", "frames", "res")}),
+          flush=True)
     print(json.dumps({"kernels_by_device_ms": result["kernels_by_device_ms"][:15]}), flush=True)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"profile_{args.preset}.json"), "w") as f:

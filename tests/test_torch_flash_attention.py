@@ -125,3 +125,43 @@ def test_cuda_kernel_matches_plain(name, d, dtype, b, lq, lk):
     err = (got.float() - plain.float()).abs().max().item()
     scale = plain.float().abs().max().item()
     assert err <= (2e-2 if dtype == "bfloat16" else 1e-4) * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,d", [("nomax", 64), ("max", 40), ("wide", 512), ("wide", 160), ("max", 120)])
+@pytest.mark.parametrize("lq,lk", [
+    # the fp32 tiles: d <= 64 takes 128 query rows x 64 keys, wider heads
+    # 64 x 32; L at 1, BK - 1, BK, BK + 1 and 2 * BQ + 1 of both
+    (1, 1), (1, 63), (1, 65), (128, 64), (257, 63), (257, 65),
+    (1, 31), (1, 33), (64, 32), (129, 31), (129, 33), (65, 1),
+])
+def test_cuda_fp32_tile_edges(name, d, lq, lk):
+    """The 3xTF32 kernels at the edges of their tiles, against the plain
+    version with TF32 off: 1e-4 of the output scale."""
+    dev = _cuda()
+    h = 1 if name == "wide" else 3
+    q, k, v = (torch.from_numpy(x).to(dev) for x in _qkv(2, lq, lk, h, d, seed=lq * 7 + lk))
+    got = getattr(fa, f"flash_attention_{name}")(q, k, v)
+    plain = fa.attention_exp2_reference(q, k, v, no_max=name == "nomax", sum_rounded=name != "wide")
+    torch.cuda.synchronize()
+    err = (got - plain).abs().max().item()
+    assert err <= 1e-4 * plain.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,lk", [
+    ("nomax", (1, 256, 2, 64), 16384), ("max", (1, 256, 2, 64), 16384),
+    ("wide", (1, 128, 1, 512), 9216), ("nomax", (1, 130, 1, 512), 9000),
+])
+def test_cuda_fp32_long_keys(name, shape, lk):
+    """fp32 over many key tiles (the paper preset's K1 has 15,552 keys, its
+    K3 at res 1024 9,216): the sums of P V stay within 1e-4 of the output
+    scale, which one tensor-core accumulator over every key tile does not."""
+    dev = _cuda()
+    b, lq, h, d = shape
+    q, k, v = (torch.from_numpy(x).to(dev) for x in _qkv(b, lq, lk, h, d, seed=lk))
+    got = getattr(fa, f"flash_attention_{name}")(q, k, v)
+    plain = fa.attention_exp2_reference(q, k, v, no_max=name == "nomax", sum_rounded=name != "wide")
+    torch.cuda.synchronize()
+    err = (got - plain).abs().max().item()
+    assert err <= 1e-4 * plain.abs().max().item(), err

@@ -81,6 +81,26 @@ def test_matches_jax_at_one_iteration(both, case):
         assert set(tpipe.last_timings) >= {"encode", "snippet_infer", "coalign", "refine"}
 
 
+def test_latent_direct_device_output_skips_merged_decode(both):
+    """Refinement that reads the merged latent, with the output kept on the
+    device: neither side decodes the merged latent, both return
+    ``depth_coaligned=None``, and ``depth_pred`` is that of the same call
+    with ``fetch_output=True``."""
+    jpipe, tpipe = both
+    frames, noise = _inputs(0)
+    kw = dict(LATENT, refine_step=2, refine_in_latent=True, init_noise=noise, **ONE_ITER)
+    ref = jpipe.forward(frames, fetch_output=False, **kw)
+    got = tpipe.forward(frames, fetch_output=False, **kw)
+    assert ref.depth_coaligned is None and got.depth_coaligned is None
+    assert "decode" not in tpipe.last_timings
+    assert tpipe.last_chunks["decode"] == -(-10 // 4)  # the refine decode of 10 frames, 4 at a time
+    got_pred = got.depth_pred.cpu().numpy()
+    fetched = tpipe.forward(frames, fetch_output=True, **kw)
+    assert tpipe.last_chunks["decode"] == 2 * -(-10 // 4) and fetched.depth_coaligned is not None
+    np.testing.assert_array_equal(got_pred, fetched.depth_pred)
+    np.testing.assert_allclose(got_pred, np.asarray(ref.depth_pred), rtol=0, atol=TOL_ONE_ITER)
+
+
 def test_full_solve_matches_jax(both):
     """Exact merge and stride-1 refinement after the 2000-iteration solve."""
     jpipe, tpipe = both

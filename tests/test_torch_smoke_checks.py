@@ -1,7 +1,7 @@
-"""CPU tests of chip_smoke.py's bf16 check of a kernel against its plain version.
+"""CPU tests of chip_smoke.py's check of a kernel against its plain version.
 
-The mean bound must pass bf16 rounding noise and fail an output that lacks
-one tile of work: a key tile of attention, which the max bound alone can
+The mean bound must pass bf16 rounding noise, and the fp32 max bound fp32
+rounding noise, and each must fail an output that lacks one tile of work: a key tile of attention, which the max bound alone can
 pass at long key lengths, or a (tap, 64-channel chunk) of the conv."""
 
 from __future__ import annotations
@@ -43,6 +43,37 @@ def test_dropped_key_tile_fails(shape):
     assert cs.drop_key_tile(torch, k, v)[0].shape[1] == shape[1] - cs.DROPPED_KEYS
     with pytest.raises(AssertionError):
         cs.held_to_plain("dropped", dropped, ref, True, lambda: dropped)
+
+
+# ---- fp32 (the 3xTF32 kernels): the max bound, 1e-4 of the output's scale,
+# with the same control: the plain version without one key tile must fail it
+
+
+def _case_fp32(shape, no_max):
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)) for _ in range(3))
+    plain = lambda kk, vv: fa.attention_exp2_reference(q, kk, vv, no_max=no_max, sum_rounded=False)  # noqa: E731
+    return q, k, v, plain
+
+
+@pytest.mark.parametrize("no_max", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fp32_rounding_noise_passes(shape, no_max):
+    q, k, v, plain = _case_fp32(shape, no_max)
+    ref = plain(k, v)
+    # the same attention in fp64, rounded once: a kernel with other sum orders
+    got = fa.attention_exp2_reference(q.double(), k.double(), v.double(), no_max=no_max).float()
+    errs = cs.held_to_plain("noise", got, ref, False, lambda: plain(*cs.drop_key_tile(torch, k, v)))
+    assert errs["max_abs_err"] <= errs["tol"] < errs["dropped_tile_shift"]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fp32_dropped_key_tile_fails(shape):
+    q, k, v, plain = _case_fp32(shape, False)
+    ref = plain(k, v)
+    dropped = plain(*cs.drop_key_tile(torch, k, v))
+    with pytest.raises(AssertionError):
+        cs.held_to_plain("dropped", dropped, ref, False, lambda: dropped)
 
 
 # ---- the conv kernels (K4, K5): the control drops one (tap, 64-channel chunk)
