@@ -147,18 +147,17 @@ def check_depth(what, out, shape) -> None:
             raise AssertionError(f"{what}: {name} not finite or outside [-1, 1]")
 
 
-def attention_bound_ms(b, lq, lk, h, d, itemsize, fp32_fma=False) -> tuple:
+def attention_bound_ms(b, lq, lk, h, d, itemsize) -> tuple:
     """Least time for one attention call: q, k, v read once and o written
     once at the memory rate, or QK^T and PV at the peak rate of the type:
     bf16 on the tensor cores; fp32 as three tf32 products each (3xTF32, the
-    kernels' route, near-fp32 products) or, with ``fp32_fma``, on fp32 FMA
-    outside the tensor cores."""
+    kernels' route, near-fp32 products)."""
     nbytes = (2 * b * lq * h * d + 2 * b * lk * h * d) * itemsize
     flops = 4.0 * b * h * lq * lk * d
     if itemsize == 2:
         t_ops = flops / H100_BF16_FLOPS
     else:
-        t_ops = flops / H100_FP32_FLOPS if fp32_fma else TF32_TERMS * flops / H100_TF32_FLOPS
+        t_ops = TF32_TERMS * flops / H100_TF32_FLOPS
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, t_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
@@ -386,8 +385,6 @@ def kernel_phase(torch, fa):
         row = {"name": name, "shape": [b, lq, h, d], "L_k": lk, "dtype": str(dtype).split(".")[-1],
                **errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        if dtype == torch.float32:
-            row["bound_fp32_fma_ms"] = attention_bound_ms(b, lq, lk, h, d, 4, fp32_fma=True)[0]
         log(row)
         if row_key:
             rows[row_key] = row
@@ -610,11 +607,10 @@ def main() -> int:
                      launches_by_phase=by_phase[name])
                for tpu, name in (("K1", "nomax"), ("K2", "max"), ("K3", "wide"))]
     # the fp32 instantiations (3xTF32 wgmma after a split pre-pass), the paper path's;
-    # bound_ms is the 3xTF32 bound, bound_fp32_fma_ms the bound of fp32 FMA
+    # bound_ms is the 3xTF32 bound
     kernels += [entry(f"flash_attention_{name}_fp32", tpu, flash_src, replaces[name],
                       launches_p[f"flash_attention_{name}"], rows[f"{name}_fp32"], True, design="3xtf32 tma+wgmma",
-                      dtype="float32", launches_by_phase={"paper": launches_p[f"flash_attention_{name}"]},
-                      bound_fp32_fma_ms=rows[f"{name}_fp32"]["bound_fp32_fma_ms"])
+                      dtype="float32", launches_by_phase={"paper": launches_p[f"flash_attention_{name}"]})
                 for tpu, name in (("K1", "nomax"), ("K3", "wide"))]
     kernels += [entry(name, tpu, conv_src, f"rollingdepth_tpu/ops/conv3x3.py:{line}", conv_launches[name],
                       conv_rows[name], False)

@@ -547,17 +547,18 @@ flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 // ---- fp32: 3xTF32 on the tensor cores -----------------------------------------
 //
 // Each fp32 operand x is split into big = x with its low 13 mantissa bits
-// cleared (a tf32 value, so the tensor core reads it exactly, whatever it
-// does with the bits of a raw operand) and small = x - big (exact in fp32);
-// a product is big.big + big.small + small.big, three wgmma, fp32 sums.
-// What is dropped, small.small and the bits of small the tensor core does
-// not read, is below 2^-20 of |x||y| per product.
+// cleared (a tf32 value) and small = x - big (exact in fp32); a product is
+// big.big + big.small + small.big, three wgmma, fp32 sums.  What is dropped,
+// small.small and the bits of small the tensor core does not read, is below
+// 2^-20 of |x||y| per product.  The tensor core reads the top 19 bits of a
+// 32-bit operand (it truncates), so the raw q and k serve as their own big
+// parts; P and v^T, which are written anyway, are stored masked.
 //
-// A pre-pass (split_tf32, split_tf32_vt) writes the split operands to a
-// scratch buffer the wrapper allocates: q and k as big and small in their
-// [B, L, H, d] layout, v transposed to [B, H, d, L_p] (tf32 wgmma reads B
-// K-major only, so P V needs V^T with the keys along the rows) with L_p =
-// L_k rounded up to 8 and zero keys past L_k.  Within each group of 8 keys
+// A pre-pass (split_tf32, split_tf32_vt) writes the rest to a scratch buffer
+// the wrapper allocates: the small parts of q and k in their [B, L, H, d]
+// layout, and v transposed to [B, H, d, L_p], big and small (tf32 wgmma
+// reads B K-major only, so P V needs V^T with the keys along the rows) with
+// L_p = L_k rounded up to 8 and zero keys past L_k.  Within each group of 8 keys
 // v^T is stored in the order 0 2 4 6 1 3 5 7: the score accumulator gives a
 // thread keys 2 tig and 2 tig + 1 of each 8, the A fragment of a k8 step
 // wants keys tig and tig + 4, and this order makes the two the same keys,
@@ -567,13 +568,11 @@ constexpr uint32_t TF32_BIG = 0xFFFFE000u;  // sign, exponent and the 10 mantiss
 
 __device__ __forceinline__ float tf32_big(float x) { return __uint_as_float(__float_as_uint(x) & TF32_BIG); }
 
-__global__ void split_tf32(const float4* __restrict__ x, float4* __restrict__ big, float4* __restrict__ small,
-                           long long n4) {
+// x -> its small part, x - tf32_big(x)
+__global__ void split_tf32(const float4* __restrict__ x, float4* __restrict__ small, long long n4) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4; i += (long long)gridDim.x * blockDim.x) {
     const float4 v = x[i];
-    const float4 b = make_float4(tf32_big(v.x), tf32_big(v.y), tf32_big(v.z), tf32_big(v.w));
-    big[i] = b;
-    small[i] = make_float4(v.x - b.x, v.y - b.y, v.z - b.z, v.w - b.w);
+    small[i] = make_float4(v.x - tf32_big(v.x), v.y - tf32_big(v.y), v.z - tf32_big(v.z), v.w - tf32_big(v.w));
   }
 }
 
@@ -1085,34 +1084,34 @@ int launch_wide_dp(const void* q, const void* k, const void* v, void* o, int B, 
   return (int)cudaGetLastError();
 }
 
-// The split operands of an fp32 launch in the wrapper's scratch buffer:
-// q big, q small, k big, k small ([B, L, H, d] each), v^T big, v^T small
-// ([B, H, d, L_p] each).
+// The split operands of an fp32 launch: q and k as their own big parts,
+// and in the wrapper's scratch buffer q small, k small ([B, L, H, d] each),
+// v^T big, v^T small ([B, H, d, L_p] each).
 struct F32Split {
-  float *qb, *qs, *kb, *ks, *vb, *vs;
+  const float *qb, *kb;
+  float *qs, *ks, *vb, *vs;
   int Lp;
 };
 
 long long f32_scratch_floats(int B, int H, int Lq, int Lk, int d) {
   const long long lp = (Lk + 7) / 8 * 8;
-  return 2LL * B * H * d * ((long long)Lq + Lk + lp);
+  return (long long)B * H * d * ((long long)Lq + Lk + 2 * lp);
 }
 
 int split_f32(F32Split& sp, const void* q, const void* k, const void* v, void* scratch, int B, int H, int Lq,
               int Lk, int d, cudaStream_t st) {
   const long long nq = (long long)B * Lq * H * d, nk = (long long)B * Lk * H * d;
   sp.Lp = (Lk + 7) / 8 * 8;
-  sp.qb = static_cast<float*>(scratch);
-  sp.qs = sp.qb + nq;
-  sp.kb = sp.qs + nq;
-  sp.ks = sp.kb + nk;
+  sp.qb = static_cast<const float*>(q);
+  sp.kb = static_cast<const float*>(k);
+  sp.qs = static_cast<float*>(scratch);
+  sp.ks = sp.qs + nq;
   sp.vb = sp.ks + nk;
   sp.vs = sp.vb + (long long)B * H * d * sp.Lp;
   for (int i = 0; i < 2; ++i) {
     const long long n4 = (i == 0 ? nq : nk) / 4;
     const int blocks = (int)(n4 + 255 < 132LL * 8 * 256 ? (n4 + 255) / 256 : 132 * 8);
     split_tf32<<<blocks, 256, 0, st>>>(static_cast<const float4*>(i == 0 ? q : k),
-                                       reinterpret_cast<float4*>(i == 0 ? sp.qb : sp.kb),
                                        reinterpret_cast<float4*>(i == 0 ? sp.qs : sp.ks), n4);
   }
   split_tf32_vt<<<dim3((sp.Lp + 31) / 32, (d + 31) / 32, B * H), dim3(32, 8), 0, st>>>(

@@ -84,7 +84,8 @@ def test_explicit_cpu_is_accepted():
 
 
 @pytest.mark.parametrize("tool, argv", [("profile_fast_path", ["--preset", "full"]),
-                                        ("chunk_times", ["--preset", "paper"])])
+                                        ("chunk_times", ["--preset", "paper"]),
+                                        ("fp32_attention_parts", [])])
 def test_card_tools_refuse_without_a_card(tool, argv, capsys):
     """The timing tools run on the card only: here they exit 2 and say why."""
     import importlib
