@@ -45,10 +45,19 @@ Phases, each of which must pass or the script exits non-zero:
 7. paper   the paper preset (fp32, uncapped dilations [1, 10, 25], the
            depth-space merge of every decoded window, 10 refine steps over
            stride-1 windows) on 51 frames, the fewest on which dilation 25
-           has a window, at the preset's 432x768.
-In main, full and paper the kernel launch counts must equal what the
-pipeline's chunk counts imply (``attention_kernel_launches``), and the
-depth must be finite, of the clip's shape and within [-1, 1].  The card's
+           has a window, at the preset's 432x768;
+8. relight the IC-Light relight path (``pipelines/rollingimg.py``) at full
+           SD1.5 width with random weights, bf16, on a synthetic 24-frame
+           720x640 fg/bg pair: t2i init, dilations [1, 25] (capped to
+           [1, 7]), windows of 3, 20 DPM++ SDE steps, decode, the three
+           per-channel solves; a 6-frame warm-up, then a timed call; then
+           one 12-channel UNet chunk (bf16) and a 6-frame fp32 run with the
+           solves cut to 0 steps against the plain attention path, and the
+           RMBG matte on one chunk of 960x1088 feeds.
+In main, full, paper and relight the kernel launch counts must equal what
+the pipeline's chunk counts imply (``attention_kernel_launches``,
+``relight_kernel_launches``); the depth must be finite, of the clip's
+shape and within [-1, 1], and R/G/B within [0, 1].  The card's
 machine has no video decoder, so no phase reads a video: frames are made
 on the card.
 
@@ -56,7 +65,8 @@ Prints the card's name and power limit, a JSON line per measurement, a
 ``{"kernels": [...]}`` line (a row per kernel for each of the TPU kernels
 K1-K10; K9 has two, one per instantiation; K1 and K3 have a second row for
 their fp32 instantiation, the paper path's), and as its last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  The kernels phase also times K1, K2
+and K3 at the relight path's shapes (``relight_shapes`` in their rows).
 """
 
 from __future__ import annotations
@@ -99,12 +109,15 @@ def depth_drift(a, b) -> dict:
             "corr": float(np.corrcoef(a.ravel(), b.ravel())[0, 1])}
 
 
-def narrow_kernel_calls(attn, cfg, n: int, h: int, w: int) -> int:
-    """Self-attention calls of one UNet call that take a narrow kernel: the
-    transformer blocks level by level (each latent side halves, rounding up,
-    at every downsampler), at n * h_l * w_l tokens, by the dispatch's auto
-    rule (``ops/attention.py``).  15 at 768x432, 16 at 1024x576, where the
-    mid-block's 432 tokens pass the rule's 256."""
+def unet_kernel_calls(attn, cfg, n: int, h: int, w: int) -> dict:
+    """Self-attention calls of one UNet call that take a kernel, by head
+    width: the transformer blocks level by level (each latent side halves,
+    rounding up, at every downsampler), at n * h_l * w_l tokens, by the
+    dispatch's auto rule (``ops/attention.py``): ``narrow`` (d < 128, K1 or
+    K2) and ``wide`` (K3).  SD2 at 768x432: 15 narrow (its d = 64 mid-block
+    under the rule's 256 tokens); SD1.5 on 3 frames at 720x640: 10 narrow
+    (d = 40, 80) and 6 wide (d = 160, the mid-block's 360 tokens included),
+    on one frame 10 and 5 (the mid-block's 120 tokens stay plain)."""
     sizes = [(h, w)]
     for _ in cfg.block_out_channels[1:]:
         h, w = -(-h // 2), -(-w // 2)
@@ -114,13 +127,20 @@ def narrow_kernel_calls(attn, cfg, n: int, h: int, w: int) -> int:
               if kind == "CrossAttnDownBlock2D"] + [(bottom, 1)]
     blocks += [(bottom - i, cfg.layers_per_block + 1) for i, kind in enumerate(cfg.up_block_types)
                if kind == "CrossAttnUpBlock2D"]
-    calls = 0
+    calls = {"narrow": 0, "wide": 0}
     for level, count in blocks:
         tokens = n * sizes[level][0] * sizes[level][1]
         d = cfg.block_out_channels[level] // cfg.heads_at(level)
-        if attn.auto_selects_kernel(True, tokens, tokens, d) and d < 128:
-            calls += count
+        if attn.auto_selects_kernel(True, tokens, tokens, d):
+            calls["narrow" if d < 128 else "wide"] += count
     return calls
+
+
+def narrow_kernel_calls(attn, cfg, n: int, h: int, w: int) -> int:
+    """The narrow-kernel calls of one UNet call (``unet_kernel_calls``): 15
+    at 768x432, 16 at 1024x576, where the SD2 mid-block's 432 tokens pass
+    the rule's 256."""
+    return unet_kernel_calls(attn, cfg, n, h, w)["narrow"]
 
 
 def attention_kernel_launches(attn, pipe, chunks, lat_hw, snippet_len: int, refine_len: int, narrow: str) -> dict:
@@ -134,6 +154,21 @@ def attention_kernel_launches(attn, pipe, chunks, lat_hw, snippet_len: int, refi
     want = {"flash_attention_nomax": 0, "flash_attention_max": 0,
             "flash_attention_wide": chunks["encode"] + chunks["decode"]}
     want[narrow] = n_narrow
+    return want
+
+
+def relight_kernel_launches(attn, pipe, chunks, lat_hw, snippet_len: int, narrow: str) -> dict:
+    """The launches a relight call implies from its chunk counts: per window
+    UNet chunk (``snippet_len`` frames) and per t2i UNet chunk (one frame)
+    the calls of ``unet_kernel_calls``, the narrow ones on ``narrow``, and
+    the wide kernel once more per VAE encode and decode chunk (the
+    mid-block's d = 512 head)."""
+    window = unet_kernel_calls(attn, pipe.unet.config, snippet_len, *lat_hw)
+    t2i = unet_kernel_calls(attn, pipe.unet.config, 1, *lat_hw)
+    n_unet, n_t2i = chunks["unet"], chunks.get("t2i_unet", 0)
+    want = {"flash_attention_nomax": 0, "flash_attention_max": 0,
+            "flash_attention_wide": window["wide"] * n_unet + t2i["wide"] * n_t2i + chunks["encode"] + chunks["decode"]}
+    want[narrow] = window["narrow"] * n_unet + t2i["narrow"] * n_t2i
     return want
 
 
@@ -359,9 +394,22 @@ def kernel_phase(torch, fa):
         ("wide", (2, 1001, 1, 512), 999, torch.float32, None),
         ("wide", (4, 9216, 1, 512), 9216, torch.bfloat16, None),  # res 1024
         ("wide", (4, 5184, 1, 512), 5184, torch.float32, "wide_fp32"),  # res 768
+        # the relight path at 720x640 (latent 80x90): the 12-channel UNet on
+        # windows of 3 frames (levels 0-2 and the mid-block), the base UNet on
+        # one frame (t2i init), the VAE mid-block; 8 windows or frames a chunk
+        ("nomax", (8, 21600, 8, 40), 21600, torch.bfloat16, "relight"),
+        ("nomax", (8, 5400, 8, 80), 5400, torch.bfloat16, "relight"),
+        ("nomax", (8, 7200, 8, 40), 7200, torch.bfloat16, "relight"),
+        ("nomax", (8, 1800, 8, 80), 1800, torch.bfloat16, "relight"),
+        ("max", (8, 21600, 8, 40), 21600, torch.bfloat16, "relight"),
+        ("max", (8, 5400, 8, 80), 5400, torch.bfloat16, "relight"),
+        ("wide", (8, 1380, 8, 160), 1380, torch.bfloat16, "relight"),
+        ("wide", (8, 360, 8, 160), 360, torch.bfloat16, "relight"),
+        ("wide", (8, 460, 8, 160), 460, torch.bfloat16, "relight"),
+        ("wide", (4, 7200, 1, 512), 7200, torch.bfloat16, "relight"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
+    rows = {"relight": []}
     for name, (b, lq, h, d), lk, dtype, row_key in cases:
         q = torch.randn((b, lq, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, lk, h, d), generator=gen, device="cuda").to(dtype)
@@ -386,10 +434,109 @@ def kernel_phase(torch, fa):
                **errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         log(row)
-        if row_key:
+        if row_key == "relight":
+            rows["relight"].append(row)
+        elif row_key:
             rows[row_key] = row
         del q, k, v, got, ref
     return rows
+
+
+RELIGHT_FRAMES = 24
+RELIGHT_RES = (3, 640, 720)  # the reference's fixed working size (H, W)
+RMBG_FEED = (8, 3, 960, 1088)  # the feed run_rmbg makes for 640x720 frames, 8 a chunk
+
+
+def check_rgb(what, out, shape) -> None:
+    """R, G and B of the clip's shape, finite, within [0, 1]."""
+    for name in ("R_pred", "G_pred", "B_pred"):
+        c = getattr(out, name)
+        if c.shape != shape or not (np.isfinite(c).all() and c.min() >= 0.0 and c.max() <= 1.0):
+            raise AssertionError(f"{what}: {name} {c.shape} (want {shape}) not finite or outside [0, 1]")
+
+
+def relight_phase(torch, attn, fa, gen, smi):
+    """The relight path (``pipelines/rollingimg.py``) at full SD1.5 width with
+    random weights: a 6-frame warm-up, then a timed bf16 call on 24 frames of
+    720x640 (``RELIGHT_CALL``: dilations [1, 25] capped to [1, 7], 22 + 10
+    windows of 3) whose launches must equal what its chunks imply; one bf16
+    12-channel UNet chunk against the plain attention path; a 6-frame fp32
+    run (solves cut to 0 steps) against the plain attention path; the RMBG
+    matte on one chunk of feeds.  Returns the timed call's launches."""
+    from rollingdepth_torch.pipelines.rollingimg import encode_prompt_pair, rmbg_matte
+    from rollingdepth_torch.utils.synthetic import RELIGHT_CALL, random_relight_pipeline
+
+    t0 = time.perf_counter()
+    pipe, bound = random_relight_pipeline("cuda", torch.bfloat16, seed=0, snippet_batch=8)
+    if not attn.nomax_allowed():
+        raise AssertionError(f"relight: the score probe closed the gate on random weights (bound {bound})")
+    torch.cuda.synchronize()
+    log({"phase": "relight_setup", "seconds": time.perf_counter() - t0, "score_bound": bound,
+         "unet_params": sum(p.numel() for p in pipe.unet.parameters())})
+    n, lat_hw = RELIGHT_FRAMES, (RELIGHT_RES[1] // 8, RELIGHT_RES[2] // 8)
+    fg = torch.rand((n,) + RELIGHT_RES, generator=gen, device="cuda") * 2 - 1
+    bg = torch.rand((n,) + RELIGHT_RES, generator=gen, device="cuda") * 2 - 1
+
+    t0 = time.perf_counter()
+    pipe.forward(fg[:6], bg[:6], **RELIGHT_CALL)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.forward(fg, bg, verbose=True, **RELIGHT_CALL)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    chunks = dict(pipe.last_chunks)
+    check_rgb("relight", out, (n, 1) + RELIGHT_RES[1:])
+    want = relight_kernel_launches(attn, pipe, chunks, lat_hw, 3, "flash_attention_nomax")
+    if launches != want:
+        raise AssertionError(f"relight: launches {launches} != {want} implied by chunks {chunks}")
+    log({"phase": "relight", "frames": n, "res": list(RELIGHT_RES[1:]), "warmup_frames": 6, "warmup_s": warm_s,
+         "total_s": total_s, "fps": n / total_s, "timings_s": pipe.last_timings, "chunks": chunks,
+         "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+
+    # one 12-channel UNet chunk (8 windows of 3 frames, the prompt pair's
+    # 154 tokens), kernels against the plain attention path, bf16: 5e-2 of the output scale
+    checks = {}
+    with torch.no_grad():
+        c, uc = encode_prompt_pair(pipe.tokenizer, pipe.text_apply, "a relit scene, best quality", "lowres")
+        ctx = torch.cat([c, uc], dim=1).to(torch.bfloat16)
+        x = torch.randn((8, 3) + lat_hw + (12,), generator=gen, device="cuda").to(torch.bfloat16)
+        u_k = pipe.unet(x, 500, ctx)
+        with plain_attention():
+            u_p = pipe.unet(x, 500, ctx)
+    err, scale = (u_k.float() - u_p.float()).abs().max().item(), u_p.float().abs().max().item()
+    checks["unet12_chunk"] = {"max_abs_err": err, "scale": scale, "context_tokens": ctx.shape[1]}
+    if not err <= 5e-2 * scale:
+        raise AssertionError(f"relight unet chunk: kernels vs plain attention max err {err} > 5e-2 * {scale}")
+
+    # the RMBG matte on one chunk of the feeds run_rmbg makes for 640x720 (fp32)
+    feed = torch.rand(RMBG_FEED, generator=gen, device="cuda") * 255
+    orig = torch.rand((RMBG_FEED[0],) + RELIGHT_RES, generator=gen, device="cuda") * 255
+    matted, alpha = rmbg_matte(pipe.rmbg, feed, orig)
+    torch.cuda.synchronize()
+    if not (alpha.isfinite().all() and alpha.min() >= 0 and alpha.max() <= 1 and matted.isfinite().all()):
+        raise AssertionError("rmbg: alpha not finite or outside [0, 1]")
+    checks["rmbg"] = {"feed": list(RMBG_FEED), "alpha_mean": alpha.mean().item(),
+                      "ms": cuda_ms(lambda: rmbg_matte(pipe.rmbg, feed, orig), 3, warmup=1)}
+    del pipe, out, u_k, u_p, x, feed, orig, matted, alpha
+
+    # fp32, 6 frames, solves cut to 0 steps: kernels against the plain attention path
+    pipe32, _ = random_relight_pipeline("cuda", torch.float32, seed=0, snippet_batch=8)
+    kw = dict(RELIGHT_CALL, coalign_kwargs={"num_iterations": 0})
+    got = pipe32.forward(fg[:6], bg[:6], **kw)
+    chunks32 = dict(pipe32.last_chunks)
+    with plain_attention():
+        ref = pipe32.forward(fg[:6], bg[:6], **kw)
+    rgb = lambda o: np.concatenate([o.R_pred, o.G_pred, o.B_pred], axis=1)  # noqa: E731
+    checks["relight_fp32_6_frames_no_solve"] = drift = dict(depth_drift(rgb(got), rgb(ref)), chunks=chunks32)
+    if not (drift["max_abs_err"] <= 1e-3 and drift["corr"] > 0.99999):
+        raise AssertionError(f"relight fp32 with kernels vs plain attention: {drift}")
+    log({"phase": "relight_check", **checks, "card": smi})
+    del pipe32
+    return launches
 
 
 FULL_RES = (3, 576, 1024)  # the full preset's res 1024, 16:9
@@ -584,6 +731,11 @@ def main() -> int:
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     del pipe32, paper_frames, out_p
 
+    # ---- the relight path at 720x640, full SD1.5 width
+    t0 = time.perf_counter()
+    launches_r = relight_phase(torch, attn, fa, gen, smi)
+    log({"phase": "relight_seconds", "seconds": time.perf_counter() - t0})
+
     replaces = {
         "nomax": "rollingdepth_tpu/ops/flash_attention.py:103",
         "max": "rollingdepth_tpu/ops/flash_attention.py:44",
@@ -592,7 +744,11 @@ def main() -> int:
     counted = {"nomax": launches["flash_attention_nomax"], "max": launches_g["flash_attention_max"],
                "wide": launches["flash_attention_wide"]}
     by_phase = {name: {"main": launches[f"flash_attention_{name}"], "gate_closed": launches_g[f"flash_attention_{name}"],
-                       "full": launches_f[f"flash_attention_{name}"]} for name in ("nomax", "max", "wide")}
+                       "full": launches_f[f"flash_attention_{name}"], "relight": launches_r[f"flash_attention_{name}"]}
+                for name in ("nomax", "max", "wide")}
+    relight_rows = {name: [{k: r[k] for k in ("shape", "L_k", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by")}
+                           for r in rows["relight"] if r["name"] == name] for name in ("nomax", "max", "wide")}
     flash_src, conv_src = "rollingdepth_torch/csrc/flash_attn.cu", "rollingdepth_torch/csrc/conv3x3.cu"
 
     def entry(name, tpu, source, replaces_at, launched, r, on_main_path, **extra):
@@ -604,7 +760,7 @@ def main() -> int:
                 "library_ms": r["library_ms"], "shape": r["shape"], **extra}
 
     kernels = [entry(f"flash_attention_{name}", tpu, flash_src, replaces[name], counted[name], rows[name], True,
-                     launches_by_phase=by_phase[name])
+                     launches_by_phase=by_phase[name], relight_shapes=relight_rows[name])
                for tpu, name in (("K1", "nomax"), ("K2", "max"), ("K3", "wide"))]
     # the fp32 instantiations (3xTF32 wgmma after a split pre-pass), the paper path's;
     # bound_ms is the 3xTF32 bound

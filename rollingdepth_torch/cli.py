@@ -1,19 +1,22 @@
-"""Command line: video depth with the PyTorch port.
+"""Command line: video depth and relighting with the PyTorch port.
 
     python -m rollingdepth_torch.cli -i clip.mp4 -o out/ [-p fast|fast1024|full|paper|none] [--device cuda]
+    python -m rollingdepth_torch.cli -fi fg.mp4 -bi bg.mp4 -o out/ -c <sd15 checkpoint> [--device cuda]
 
 The JAX package's CLI (``rollingdepth_tpu/cli.py``) with the same flags,
 presets and overrides (``utils/presets.py``) and the same outputs per clip:
 ``<stem>_pred.npy`` ([N, H, W] float32 in [-1, 1]), one mp4 per colour map,
 ``<stem>_rgbd.mp4`` (input and first colour map side by side) and, with
 ``--save-snippets``, ``<stem>_snippets.npz``; ``--eval`` runs the AbsRel/δ1
-harness (``eval.py``) instead.  Where it differs:
+harness (``eval.py``) instead; ``-fi``/``-bi`` relight each fg clip over
+each bg clip (``pipelines/rollingimg.py``) into ``<fg>_rgb.mp4``, or
+``<fg>_<bg>_rgb.mp4`` when there are several backgrounds.  Where it differs:
 - ``--device`` (default ``cuda``) picks the torch device; without a card
   the default raises, and ``--device cpu`` runs on the CPU;
 - the batch defaults are the presets' (``max_vae_bs`` 4, ``snippet_batch``
   8), with no per-backend tuning, and there is no compile cache;
 - one process takes every clip;
-- relighting (``-fi``/``-bi``) and ``--quantize`` raise NotImplementedError.
+- ``--quantize`` raises NotImplementedError.
 Reading video needs OpenCV or the native decoder (``io/video.py``), and the
 colour maps need matplotlib.
 """
@@ -43,13 +46,14 @@ OVERRIDES = {
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="Run video depth estimation using RollingDepth (PyTorch port).")
+    parser = argparse.ArgumentParser(
+        description="Run video depth estimation / relighting using RollingDepth (PyTorch port).")
     parser.add_argument("-i", "--input-video", type=str, default=None, dest="input_video",
                         help="Input video(s): file, .txt list, or directory (depth mode).")
     parser.add_argument("-fi", "--input-fg-video", type=str, default=None, dest="input_fg_video",
-                        help="Foreground video(s) (relight mode; not ported).")
+                        help="Foreground video(s) (relight mode).")
     parser.add_argument("-bi", "--input-bg-video", type=str, default=None, dest="input_bg_video",
-                        help="Background video(s) (relight mode; not ported).")
+                        help="Background video(s) (relight mode).")
     parser.add_argument("-o", "--output-dir", type=str, required=True, dest="output_dir")
     parser.add_argument("-p", "--preset", type=str, default="fast",
                         choices=["fast", "fast1024", "full", "paper", "none"])
@@ -113,7 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--eval-depth-scale", type=float, default=None,
                         help="override the per-dataset GT uint16->meters decode factor (eval.py "
                              "DATASET_DEPTH_SCALE)")
-    # relight-mode flags, accepted so that the JAX CLI's command lines parse
+    # relight-mode flags
     parser.add_argument("--prompt", type=str, default=None)
     parser.add_argument("--a-prompt", type=str, default=None, dest="a_prompt")
     parser.add_argument("--n-prompt", type=str, default=None, dest="n_prompt")
@@ -273,6 +277,43 @@ def run_eval(args, settings) -> None:
     print(json.dumps({"dataset": dataset, **means}))
 
 
+def run_relight(args, settings) -> None:
+    """Each fg clip relit over each bg clip: R, G and B side by side in one
+    uint8 video at the working 720x640, 30 fps unless ``--fps``."""
+    from .io.pretrained_relight import load_relight_pipeline
+    from .io.video import enumerate_videos, write_video_from_numpy
+    from .pipelines import rollingimg as ri
+
+    logging.info("Loading relight checkpoint from %s", args.checkpoint)
+    pipe = load_relight_pipeline(args.checkpoint, dtype=settings.dtype, snippet_batch=settings.snippet_batch,
+                                 quantize=args.quantize, device=args.device)
+    output_dir = Path(args.output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    fg_videos = enumerate_videos(args.input_fg_video)
+    bg_videos = enumerate_videos(args.input_bg_video)
+    prompts = {k: getattr(args, k) for k in ("prompt", "a_prompt", "n_prompt") if getattr(args, k) is not None}
+    # --frame-count 0 means unset: the pipeline's own 253-frame cap holds
+    frames = {"frame_count": settings.frame_count} if settings.frame_count > 0 else {}
+    for fg in map(Path, fg_videos):
+        for bg in map(Path, bg_videos):
+            out = pipe(
+                input_fg_video_path=fg, input_bg_video_path=bg, start_frame=settings.start_frame,
+                dilations=list(settings.dilations), cap_dilation=settings.cap_dilation,
+                snippet_lengths=list(settings.snippet_lengths), strides=list(settings.strides),
+                resample_method=settings.resample_method,
+                seed=settings.seed if settings.seed is not None else ri.DEFAULT_SEED, init_mode=args.init_mode,
+                verbose=settings.verbose, max_vae_bs=settings.max_vae_bs, keep_snippets=False,
+                turbo=args.turbo_relight, **frames, **prompts,
+            )
+            combined = np.concatenate([out.R_pred, out.G_pred, out.B_pred], axis=1)
+            combined = np.clip(combined * 255, 0, 255).astype(np.uint8).transpose(0, 2, 3, 1)
+            # one output per (fg, bg) pair: a bare fg stem would overwrite earlier backgrounds
+            stem = fg.stem if len(bg_videos) == 1 else f"{fg.stem}_{bg.stem}"
+            write_video_from_numpy(combined, output_dir / f"{stem}_rgb.mp4",
+                                   fps=args.output_fps if args.output_fps > 0 else 30, verbose=settings.verbose)
+    logging.info("Finished. Saved to %s", output_dir)
+
+
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args, settings = resolve_args(argv)
@@ -280,14 +321,15 @@ def main(argv=None) -> None:
     if args.attn_backend and args.attn_backend != "auto":
         # read by ops.attention.dot_product_attention on every call
         os.environ["ROLLINGDEPTH_ATTN"] = args.attn_backend
-    if args.input_fg_video or args.input_bg_video:
-        raise NotImplementedError("relighting (-fi/-bi) is not ported yet (ROADMAP item 13)")
     if args.eval_dataset:
         run_eval(args, settings)
+    elif args.input_fg_video and args.input_bg_video:
+        run_relight(args, settings)
     elif args.input_video:
         run_depth(args, settings)
     else:
-        raise SystemExit("Provide -i for depth estimation or --eval for accuracy evaluation.")
+        raise SystemExit("Provide -i for depth estimation, -fi/-bi for relighting, "
+                         "or --eval for accuracy evaluation.")
 
 
 if __name__ == "__main__":

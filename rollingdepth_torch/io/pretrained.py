@@ -89,7 +89,9 @@ def load_rollingdepth_pipeline(checkpoint_dir: str, dtype="fp16", snippet_batch:
 
 
 def load_pipeline(checkpoint_dir: str, dtype="fp16", **kwargs):
-    """Dispatch on model_index.json's ``_class_name``."""
+    """Dispatch on model_index.json's ``_class_name``: the depth pipeline,
+    or the relight pipeline (``io/pretrained_relight.py``) for the relight,
+    SD t2i/i2i and generation-3 class names, as the JAX loader does."""
     index_path = os.path.join(checkpoint_dir, "model_index.json")
     class_name = "RollingDepthPipeline"
     if os.path.exists(index_path):
@@ -97,7 +99,13 @@ def load_pipeline(checkpoint_dir: str, dtype="fp16", **kwargs):
             class_name = json.load(f).get("_class_name", class_name)
     if class_name in ("RollingDepthPipeline", "DiffusionPipeline"):
         return load_rollingdepth_pipeline(checkpoint_dir, dtype=dtype, **kwargs)
-    if class_name in ("RollingImgPipeline", "StableDiffusionPipeline", "StableDiffusionImg2ImgPipeline",
-                      "MyRollingDepthPipeline"):
-        raise NotImplementedError(f"{class_name}: the relight stack is not ported yet (ROADMAP item 13)")
+    if class_name in ("RollingImgPipeline", "StableDiffusionPipeline", "StableDiffusionImg2ImgPipeline"):
+        from .pretrained_relight import load_relight_pipeline
+
+        return load_relight_pipeline(checkpoint_dir, dtype=dtype, **kwargs)
+    if class_name == "MyRollingDepthPipeline":
+        from ..pipelines.my_rollingdepth import MyRollingDepthPipeline
+        from .pretrained_relight import load_relight_pipeline
+
+        return load_relight_pipeline(checkpoint_dir, dtype=dtype, pipeline_cls=MyRollingDepthPipeline, **kwargs)
     raise ValueError(f"Unknown pipeline class {class_name!r} in {index_path}")

@@ -6,7 +6,9 @@ a module's weight files (single-file, sharded ``*.index.json`` and
 ``fp16``-variant safetensors, or a torch ``.bin``) and its config, and
 converts a parameter pytree of the JAX package (nested dicts and lists of
 arrays) back into a diffusers-named state dict: ``state_dict_from_jax`` is
-the inverse of ``rollingdepth_tpu.io.weights.state_dict_to_pytree``.
+the inverse of ``rollingdepth_tpu.io.weights.state_dict_to_pytree``.  The
+IC-Light transforms (``expand_conv_in``, ``merge_offset``) act on such
+state dicts at load time.
 """
 
 from __future__ import annotations
@@ -145,3 +147,27 @@ def load_config(model_dir: str, subfolder: Optional[str] = None) -> dict:
             with open(path) as f:
                 return json.load(f)
     raise FileNotFoundError(f"No config json under {d}")
+
+
+# ---------------------------------------------------------------------------
+# IC-Light checkpoint transforms
+# ---------------------------------------------------------------------------
+
+
+def expand_conv_in(state_dict: Mapping[str, torch.Tensor], new_in_channels: int) -> StateDict:
+    """conv_in's input channels zero-padded to ``new_in_channels`` (4 -> 12
+    for the relight UNet: latent, fg and bg latents)."""
+    sd = dict(state_dict)
+    w = sd["conv_in.weight"]  # [O, I, kh, kw]
+    if w.shape[1] < new_in_channels:
+        pad = w.new_zeros((w.shape[0], new_in_channels - w.shape[1]) + tuple(w.shape[2:]))
+        sd["conv_in.weight"] = torch.cat([w, pad], dim=1)
+    return sd
+
+
+def merge_offset(state_dict: Mapping[str, torch.Tensor], offset: Mapping[str, Any]) -> StateDict:
+    """IC-Light's additive offset merge: merged[k] = origin[k] + offset[k]."""
+    sd = dict(state_dict)
+    for k, v in offset.items():
+        sd[k] = sd[k] + torch.as_tensor(v).to(sd[k])
+    return sd

@@ -53,6 +53,13 @@ class UNetConfig:
         return cls(in_channels=in_channels)
 
     @classmethod
+    def sd15(cls, in_channels: int = 4) -> "UNetConfig":
+        """SD1.5 shape (the IC-Light relight family): 8 heads at every level
+        (head dims 40, 80, 160), CLIP ViT-L context, 1x1 conv projections."""
+        return cls(in_channels=in_channels, cross_attention_dim=768, attention_head_dim=8,
+                   use_linear_projection=False)
+
+    @classmethod
     def tiny(cls, in_channels: int = 8) -> "UNetConfig":
         return cls(
             sample_size=8, in_channels=in_channels,

@@ -1,6 +1,6 @@
 """Where a preset's time goes on the card: phases, device busy share, kernels.
 
-    python -m rollingdepth_torch.tools.profile_fast_path [--preset fast|fast1024|full|paper]
+    python -m rollingdepth_torch.tools.profile_fast_path [--preset fast|fast1024|full|paper | --relight]
         [--frames 60] [--height H --width W] [--out DIR]
 
 Builds the full-width pipeline with seeded random weights
@@ -14,10 +14,17 @@ for ``fast1024`` and ``full``), TF32 off.  For each phase
 (the pipeline's ``rollingdepth.<phase>`` spans) it reports the host time,
 the device time covered by kernels inside the span and the device's idle
 share; then the kernels by total device time.  Prints JSON lines and writes
-``profile_<preset>.json`` and the profiler's kernel table into ``--out``.
+``profile_<preset>.json`` into ``--out`` (the profiler's own table is not
+written: ``key_averages`` takes minutes on the relight call's 1.8M kernels).
 The profiler slows the host: a phase bound by the host (the aligner's
 loop) runs longer under it than in ``chip_smoke.py``, so its idle share
 here is an upper bound.
+
+``--relight`` runs the relight path instead (``random_relight_pipeline``,
+bf16, ``RELIGHT_CALL``: t2i init, dilations [1, 25], 20 DPM++ SDE steps,
+the three per-channel solves) on a synthetic fg/bg pair at 720x640 (the
+``rollingimg.<phase>`` spans), warmed up on the first 6 frames, and
+writes ``profile_relight.json``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", default="fast", choices=["fast", "fast1024", "full", "paper"])
+    ap.add_argument("--relight", action="store_true", help="the relight path at 720x640 instead of a depth preset")
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--width", type=int, default=None)
@@ -48,36 +56,49 @@ def main(argv=None) -> int:
         return 2
     from ..io.pretrained import DTYPE_MAP
     from ..utils.presets import resolve_preset
-    from ..utils.synthetic import preset_kwargs, random_depth_pipeline
+    from ..utils.synthetic import RELIGHT_CALL, preset_kwargs, random_depth_pipeline, random_relight_pipeline
 
     settings = resolve_preset(args.preset)
-    call = preset_kwargs(args.preset)
-    width = args.width or settings.res
-    height = args.height or width * 9 // 16
+    name = "relight" if args.relight else args.preset
+    if args.relight:
+        width, height = args.width or 720, args.height or 640
+    else:
+        width = args.width or settings.res
+        height = args.height or width * 9 // 16
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     # fp32 in full fp32, as chip_smoke.py and chunk_times run it: TF32 off for matmuls and cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pipe, _ = random_depth_pipeline("cuda", DTYPE_MAP[settings.dtype], seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    frames = torch.randint(0, 256, (args.frames, 3, height, width), generator=gen,
-                           device="cuda", dtype=torch.uint8)
-    walls = []  # the warm-up call (first-use costs included), then the same call warm
-    for _ in range(2):
+    if args.relight:
+        pipe, _ = random_relight_pipeline("cuda", torch.bfloat16, seed=0)
+        fg, bg = (torch.rand((args.frames, 3, height, width), generator=gen, device="cuda") * 2 - 1
+                  for _ in range(2))
+        run = lambda n=None, **kw: pipe.forward(fg[:n], bg[:n], **RELIGHT_CALL, **kw)  # noqa: E731
+        warm = 6  # the warm-up: the first 6 frames
+    else:
+        pipe, _ = random_depth_pipeline("cuda", DTYPE_MAP[settings.dtype], seed=0)
+        frames = torch.randint(0, 256, (args.frames, 3, height, width), generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        call = preset_kwargs(args.preset)
+        run = lambda n=None, **kw: pipe(input_frames=frames[:n], **call, **kw)  # noqa: E731
+        warm = None  # the warm-up: the same call
+    walls = []  # the warm-up call (first-use costs included), then the call warm
+    for n in (warm, None):
         t0 = time.perf_counter()
-        pipe(input_frames=frames, **call)
+        run(n)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     warmup_s, wall_s = walls
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(input_frames=frames, verbose=True, **call)
+        run(verbose=True)
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
     events = prof.events()
-    spans = {e.name: e.time_range for e in events if e.name.startswith("rollingdepth.")}
+    spans = {e.name: e.time_range for e in events if e.name.startswith(("rollingdepth.", "rollingimg."))}
     # device-side copies of CPU ranges (record_function spans, the
     # optimizer's step annotation) carry a CPU op's name; kernels do not
     cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
@@ -92,13 +113,13 @@ def main(argv=None) -> int:
     def busy_us(a: float, b: float) -> float:
         return sum(max(0.0, min(hi, b) - max(lo, a)) for lo, hi in merged)
 
-    result = {"card": smi, "preset": args.preset, "frames": args.frames, "res": [height, width], "wall_s": wall_s,
+    result = {"card": smi, "preset": name, "frames": args.frames, "res": [height, width], "wall_s": wall_s,
               "warmup_wall_s": warmup_s, "profiled_wall_s": profiled_s, "attention": os.environ.get("ROLLINGDEPTH_ATTN", "auto"),
               "device_kernels_seen": len(kernels), "phases": {}}
-    for name, r in spans.items():
+    for span, r in spans.items():
         host_us = r.end - r.start
         dev_us = busy_us(r.start, r.end)
-        result["phases"][name.split(".", 1)[1]] = {
+        result["phases"][span.split(".", 1)[1]] = {
             "host_ms": host_us / 1e3, "device_busy_ms": dev_us / 1e3,
             "idle_share": 1.0 - dev_us / host_us if host_us > 0 else None}
     if spans:
@@ -120,10 +141,8 @@ def main(argv=None) -> int:
           flush=True)
     print(json.dumps({"kernels_by_device_ms": result["kernels_by_device_ms"][:15]}), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_{args.preset}.json"), "w") as f:
+    with open(os.path.join(args.out, f"profile_{name}.json"), "w") as f:
         json.dump(result, f, indent=1)
-    with open(os.path.join(args.out, f"profile_{args.preset}_table.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     return 0
 
 

@@ -1,23 +1,32 @@
-"""The depth pipeline at full SD2 width with seeded random weights.
+"""The depth and relight pipelines at full width with seeded random weights.
 
 Released weights are not part of the repository, so the on-card smoke and
-the profiling script build the rollingdepth-v1-0 architecture (SD2 UNet
-with 8 input channels, the SD VAE, the OpenCLIP ViT-H text tower, a
-v-prediction DDIM with trailing spacing) with random weights drawn from a
-seeded ``torch.Generator`` on the device.
+the profiling script build the architectures with random weights drawn
+from a seeded ``torch.Generator`` on the device:
+- depth: rollingdepth-v1-0 (SD2 UNet with 8 input channels, the SD VAE,
+  the OpenCLIP ViT-H text tower, a v-prediction DDIM with trailing spacing);
+- relight: the IC-Light stack (the SD1.5 UNet as a 4-channel base and a
+  12-channel merged copy, the SD VAE, CLIP ViT-L, DPM++ 2M SDE Karras, the
+  RMBG U²-Net) with a byte-level tokenizer in place of CLIP's BPE files.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..io.pretrained_relight import RELIGHT_SCHEDULER_CONFIG
+from ..io.tokenizer import CLIPTokenizer, bytes_to_unicode
+from ..io.weights import expand_conv_in, merge_offset
 from ..models.clip_text import CLIPTextConfig, CLIPTextModel
 from ..models.layers import init_random_
+from ..models.rmbg import BriaRMBG
 from ..models.unet import UNet2DConditionModel, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..ops.score_probe import calibrate_nomax
 from ..pipelines.rollingdepth import RollingDepthPipeline
+from ..pipelines.rollingimg import RollingImgPipeline
 from ..schedulers.ddim import DDIMConfig, DDIMScheduler
+from ..schedulers.dpmsolver import DPMSolverMultistepScheduler
 from .device import resolve_device
 from .presets import resolve_preset
 
@@ -56,4 +65,57 @@ def random_depth_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snip
     sched = DDIMScheduler(DDIMConfig(beta_schedule="scaled_linear", timestep_spacing="trailing",
                                      prediction_type="v_prediction", steps_offset=1))
     pipe = RollingDepthPipeline(unet, vae, sched, empty, dtype=dtype, snippet_batch=snippet_batch, device=dev)
+    return pipe, bound
+
+
+# the relight CLI's call: t2i init, dilations [1, 25], windows of 3, a 40-step
+# schedule entered at strength 0.5 (20 t2i and 20 window steps), the full
+# 2000-step solves, no window copies kept
+RELIGHT_CALL = dict(dilations=[1, 25], snippet_lengths=[3], strides=[1], init_mode="t2i", num_inference_steps=40,
+                    strength=0.5, max_vae_bs=4, seed=12345, keep_snippets=False)
+
+# CLIP ViT-L/14's text tower, SD1.5's text encoder
+CLIP_VIT_L = CLIPTextConfig(hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
+                            hidden_act="quick_gelu")
+
+
+def byte_tokenizer() -> CLIPTokenizer:
+    """A CLIP tokenizer without merges: every byte its own token (ids
+    0-511), BOS and EOS at CLIP's 49406 and 49407.  The default relight
+    prompts take one 77-token chunk each, as with CLIP's BPE."""
+    vocab = {}
+    for suffix in ("", "</w>"):
+        for u in bytes_to_unicode().values():
+            vocab[u + suffix] = len(vocab)
+    vocab.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    return CLIPTokenizer(vocab, [])
+
+
+@torch.no_grad()
+def random_relight_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snippet_batch: int = 8):
+    """Returns (RollingImgPipeline, score-probe bound).  The merged UNet is
+    the base's state dict through the loader's transforms (conv_in padded
+    to 12 channels, a random offset on conv_in so that the condition
+    channels count); the max-free gate is calibrated on it, as the loader
+    does."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = init_random_(UNet2DConditionModel(UNetConfig.sd15(), device=dev), gen).eval()
+    w_in = base.conv_in.weight
+    offset = (torch.rand((w_in.shape[0], 12) + tuple(w_in.shape[2:]), generator=gen, device=dev) * 2 - 1)
+    sd12 = merge_offset(expand_conv_in(base.state_dict(), 12), {"conv_in.weight": offset / (12 * 9) ** 0.5})
+    unet = UNet2DConditionModel(UNetConfig.sd15(in_channels=12), device=dev)
+    unet.load_state_dict(sd12)
+    unet, base = unet.to(dtype).eval(), base.to(dtype)
+    vae = init_random_(AutoencoderKL(VAEConfig(), device=dev), gen).to(dtype).eval()
+    text = init_random_(CLIPTextModel(CLIP_VIT_L, device=dev), gen).eval()
+    rmbg = init_random_(BriaRMBG(device=dev), gen).eval()
+    bound = calibrate_nomax(unet)
+
+    def text_apply(ids: torch.Tensor) -> torch.Tensor:
+        return text(ids.to(dev))
+
+    pipe = RollingImgPipeline(unet, vae, DPMSolverMultistepScheduler(RELIGHT_SCHEDULER_CONFIG), byte_tokenizer(),
+                              text_apply, base_unet=base, rmbg=rmbg, dtype=dtype, snippet_batch=snippet_batch,
+                              device=dev)
     return pipe, bound

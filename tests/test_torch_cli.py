@@ -152,10 +152,10 @@ def test_cli_eval_end_to_end(checkpoint, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, error", [
-    (["-fi", "fg.mp4", "-bi", "bg.mp4"], "ROADMAP item 13"),
     (["-i", "clip.mp4", "--quantize", "w8a8", "--device", "cpu"], "ROADMAP item 17"),
 ])
 def test_unported_modes_raise(checkpoint, tmp_path, argv, error):
+    """``--quantize`` (relighting, ``-fi/-bi``, runs: ``test_torch_relight_cli.py``)."""
     with pytest.raises(NotImplementedError, match=error):
         tcli.main(argv + ["-o", str(tmp_path / "out"), "-c", checkpoint])
 

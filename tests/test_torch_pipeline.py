@@ -113,15 +113,19 @@ def test_chunking_and_call_entry_point(both):
 
 
 def test_unported_paths_raise(both, tmp_path):
-    """What still raises: dilations without 1, and the relight stack's
-    loader (ROADMAP item 13).  Refinement and the exact merge run
-    (``test_torch_refine.py``)."""
+    """What raises: dilations without 1, and a pipeline class no loader
+    knows.  The relight class names go to the relight loader
+    (``test_torch_relight_cli.py``), which needs a checkpoint; refinement
+    and the exact merge run (``test_torch_refine.py``)."""
     _, tpipe = both
     frames, _ = _inputs()
     with pytest.raises(ValueError, match="dilations should include 1"):
         tpipe.forward(frames, dilations=[2, 3])
     (tmp_path / "model_index.json").write_text(json.dumps({"_class_name": "RollingImgPipeline"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(FileNotFoundError):
+        load_pipeline(str(tmp_path), dtype="fp32", device="cpu")
+    (tmp_path / "model_index.json").write_text(json.dumps({"_class_name": "NoSuchPipeline"}))
+    with pytest.raises(ValueError, match="Unknown pipeline class"):
         load_pipeline(str(tmp_path), dtype="fp32", device="cpu")
 
 
@@ -179,6 +183,9 @@ def test_loader_on_written_checkpoint_matches_jax(tmp_path):
     np.testing.assert_allclose(pipe.forward(frames, **kw).depth_pred, jpipe.forward(frames, **kw).depth_pred,
                                rtol=0, atol=1e-4)
 
+    # the relight class name on the same directory: the relight loader, its
+    # UNet's conv_in zero-padded to 12 input channels
     (tmp_path / "model_index.json").write_text(json.dumps({"_class_name": "RollingImgPipeline"}))
-    with pytest.raises(NotImplementedError):
-        load_pipeline(str(tmp_path), dtype="fp32", device="cpu")
+    relight = load_pipeline(str(tmp_path), dtype="fp32", device="cpu")
+    assert type(relight).__name__ == "RollingImgPipeline" and relight.unet.config.in_channels == 12
+    assert not relight.unet.conv_in.weight[:, 8:].any()

@@ -164,3 +164,79 @@ def test_launches_implied_by_chunks():
     assert cs.attention_kernel_launches(attn, Pipe, {"encode": 3, "unet": 2, "decode": 3}, (54, 96), 3, 3,
                                         "flash_attention_max") == {
         "flash_attention_nomax": 0, "flash_attention_max": 30, "flash_attention_wide": 6}
+
+
+# ---- the relight phase's launch rule (SD1.5: narrow d = 40, 80; wide d = 160)
+
+
+@pytest.mark.parametrize("n, calls", [(3, {"narrow": 10, "wide": 6}), (1, {"narrow": 10, "wide": 5})])
+def test_unet_kernel_calls_at_sd15_width(n, calls):
+    """At 720x640 (latent 80x90): levels 0-1 narrow, level 2 (23x20) wide;
+    the mid-block (10x12) takes the kernel on 3 frames (360 tokens), not on
+    one (120)."""
+    from rollingdepth_torch.models.unet import UNetConfig
+    from rollingdepth_torch.ops import attention as attn
+
+    assert cs.unet_kernel_calls(attn, UNetConfig.sd15(12), n, 80, 90) == calls
+    assert cs.narrow_kernel_calls(attn, UNetConfig.sd15(12), n, 80, 90) == calls["narrow"]
+
+
+def test_relight_launches_implied_by_chunks():
+    """The smoke's timed relight call: 24 frames, 32 windows in 4 chunks of
+    8 and 24 frames in 3 t2i chunks, 20 steps each; 12 encode and 24 decode
+    chunks of 4."""
+    from rollingdepth_torch.models.unet import UNetConfig
+    from rollingdepth_torch.ops import attention as attn
+
+    class Pipe:
+        class unet:
+            config = UNetConfig.sd15(12)
+
+    chunks = {"encode": 12, "t2i_unet": 60, "unet": 80, "decode": 24}
+    assert cs.relight_kernel_launches(attn, Pipe, chunks, (80, 90), 3, "flash_attention_nomax") == {
+        "flash_attention_nomax": 10 * 80 + 10 * 60, "flash_attention_max": 0,
+        "flash_attention_wide": 6 * 80 + 5 * 60 + 12 + 24}
+
+
+def test_relight_launches_match_a_run(monkeypatch):
+    """The rule against the attention calls a whole relight forward sends
+    to the auto rule's kernels (on the CPU, the dispatch spied on as if the
+    tensors lay on the card), on a small pipeline whose UNet has narrow and
+    wide heads above 256 tokens and whose VAE mid-block is wide."""
+    import dataclasses
+
+    from rollingdepth_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from rollingdepth_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from rollingdepth_torch.models.vae import AutoencoderKL, VAEConfig
+    from rollingdepth_torch.ops import attention as attn
+    from rollingdepth_torch.pipelines.rollingimg import RollingImgPipeline
+    from rollingdepth_torch.schedulers.dpmsolver import DPMSolverConfig, DPMSolverMultistepScheduler
+    from rollingdepth_torch.utils.synthetic import byte_tokenizer
+
+    cfg = dict(sample_size=8, block_out_channels=(64, 256, 256, 256), attention_head_dim=2, norm_num_groups=8,
+               cross_attention_dim=16, use_linear_projection=False)
+    unet = UNet2DConditionModel(UNetConfig(in_channels=12, **cfg), device="cpu")
+    base = UNet2DConditionModel(UNetConfig(in_channels=4, **cfg), device="cpu")
+    vae = AutoencoderKL(dataclasses.replace(VAEConfig.tiny(), block_out_channels=(128, 128)), device="cpu")
+    text = CLIPTextModel(dataclasses.replace(CLIPTextConfig.tiny(), vocab_size=49408, max_position_embeddings=77),
+                         device="cpu")
+    pipe = RollingImgPipeline(unet, vae, DPMSolverMultistepScheduler(DPMSolverConfig(
+        algorithm_type="sde-dpmsolver++", use_karras_sigmas=True)), byte_tokenizer(), text, base_unet=base,
+        dtype=torch.float32, snippet_batch=2, device="cpu")
+
+    seen = {"narrow": 0, "wide": 0}
+    rule = attn.auto_selects_kernel
+
+    def spy(on_cuda, lq, lk, d):
+        if rule(True, lq, lk, d):
+            seen["narrow" if d < 128 else "wide"] += 1
+        return False
+
+    monkeypatch.setattr(attn, "auto_selects_kernel", spy)
+    frames = np.random.default_rng(0).random((5, 3, 48, 48), dtype=np.float32) * 2 - 1
+    pipe.forward(frames, frames[::-1].copy(), dilations=[1], num_inference_steps=4,
+                 coalign_kwargs={"num_iterations": 0})
+    monkeypatch.undo()  # the rule itself again
+    want = cs.relight_kernel_launches(attn, pipe, pipe.last_chunks, (24, 24), 3, "flash_attention_nomax")
+    assert seen["narrow"] == want["flash_attention_nomax"] > 0
+    assert seen["wide"] == want["flash_attention_wide"] > pipe.last_chunks["encode"] + pipe.last_chunks["decode"]
