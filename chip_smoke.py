@@ -53,11 +53,27 @@ Phases, each of which must pass or the script exits non-zero:
            per-channel solves; a 6-frame warm-up, then a timed call; then
            one 12-channel UNet chunk (bf16) and a 6-frame fp32 run with the
            solves cut to 0 steps against the plain attention path, and the
-           RMBG matte on one chunk of 960x1088 feeds.
-In main, full, paper and relight the kernel launch counts must equal what
-the pipeline's chunk counts imply (``attention_kernel_launches``,
-``relight_kernel_launches``); the depth must be finite, of the clip's
-shape and within [-1, 1], and R/G/B within [0, 1].  The card's
+           RMBG matte on one chunk of 960x1088 feeds;
+9. train   the training path (``training.py``, ``training_data.py``) at
+           full SD2 width in fp32 with random weights: the snippet-latent
+           dataset of 2 synthetic clips of 8 frames at 480x640 (windows of
+           3, dilations 1 and 2, batches of 2 snippets; encoded by the VAE,
+           K3 fp32), then 4 AdamW steps (cosine schedule, 2 warm-up steps)
+           with self-attention forward on K1 fp32 and backward by the plain
+           recompute; per step loss, grad_norm and the forward, backward and
+           optimizer seconds; the state is saved with ``save_train_state``;
+10. train_check one more step twice from that saved state with the same
+           timesteps and noise, with the kernels and on the plain attention
+           path: loss, grad_norm and the updated parameters against each
+           other, and every parameter that the plain path gives a gradient
+           gets a nonzero one through the kernels; then each
+           ``FlashAttention``'s dq, dk, dv against autograd through
+           ``plain_attention`` (K1 bf16 and fp32, K2 bf16, K3 fp32) with the
+           times of both backwards.
+In main, full, paper, relight and train the kernel launch counts must
+equal what the chunk and step counts imply (``attention_kernel_launches``,
+``relight_kernel_launches``, ``train_kernel_launches``); the depth must be
+finite, of the clip's shape and within [-1, 1], and R/G/B within [0, 1].  The card's
 machine has no video decoder, so no phase reads a video: frames are made
 on the card.
 
@@ -73,9 +89,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -539,6 +557,184 @@ def relight_phase(torch, attn, fa, gen, smi):
     return launches
 
 
+TRAIN_CLIPS, TRAIN_FRAMES, TRAIN_RES = 2, 8, (480, 640)
+TRAIN_STEPS = 4
+TRAIN_VAE_BS = 4
+# windows of 3 at dilations 1 and 2, uncapped (capping takes 2 to 1 on 8
+# frames): 6 + 4 windows a clip, batches of 2 snippets
+TRAIN_DATA = dict(snippet_len=3, dilations=(1, 2), cap_dilation=False, batch_size=2, seed=0)
+TRAIN_CONFIG = dict(lr_schedule="cosine", warmup_steps=2, total_steps=10)
+# the Function's backward against autograd through plain_attention:
+# (kernel, [B, L, H, D], dtype); level 0 of the train step's UNet, and the
+# VAE mid-block of its encode chunks
+GRAD_CASES = (("nomax", (2, 14400, 5, 64), "bfloat16"), ("nomax", (2, 14400, 5, 64), "float32"),
+              ("max", (2, 14400, 5, 64), "bfloat16"), ("wide", (4, 4800, 1, 512), "float32"))
+
+
+def train_kernel_launches(attn, cfg, snippet_len: int, lat_hw, steps: int, encode_chunks: int) -> dict:
+    """The launches the train phase implies: each step's UNet forward makes
+    the kernel calls of ``unet_kernel_calls`` (narrow ones on K1 while the
+    gate is open; the backward launches none), each VAE encode chunk one
+    wide launch (the mid-block's d = 512 head).  SD2 at 480x640 on windows
+    of 3: 15 narrow a step."""
+    calls = unet_kernel_calls(attn, cfg, snippet_len, *lat_hw)
+    return {"flash_attention_nomax": calls["narrow"] * steps, "flash_attention_max": 0,
+            "flash_attention_wide": calls["wide"] * steps + encode_chunks}
+
+
+def params_within(what, got: dict, ref: dict, lr: float) -> dict:
+    """Raise unless every parameter of ``got`` ({name: tensor}) is within
+    1e-6 + 2.2 lr of ``ref``'s after one update from the same state: Adam
+    moves a parameter by at most about lr, so a gradient near 0 whose sign
+    differs between the two runs parts them by up to 2 lr."""
+    if got.keys() != ref.keys():
+        raise AssertionError(f"{what}: parameter names differ")
+    tol = 1e-6 + 2.2 * lr
+    name, err = max(((n, (got[n].float() - ref[n].float()).abs().max().item()) for n in ref), key=lambda x: x[1])
+    if not err <= tol:
+        raise AssertionError(f"{what}: {name} moved apart by {err} > {tol}")
+    return {"max_abs_diff": err, "param": name, "tol": tol}
+
+
+def _grad_flags(torch, params: dict) -> dict:
+    """{name: whether its gradient has a nonzero value}, one device sync."""
+    flags = torch.stack([p.grad.abs().amax() > 0 for p in params.values()]).tolist()
+    return dict(zip(params, flags))
+
+
+def train_phase(torch, attn, fa, smi, ckpt: str):
+    """The training path at full SD2 width (fp32, random weights): the
+    dataset's encode and TRAIN_STEPS steps, launches against what they
+    imply; saves the state to ``ckpt``.  Returns (setup, dataset, step,
+    launches)."""
+    from rollingdepth_torch.training import TrainConfig, make_train_step, save_train_state, step_seconds
+    from rollingdepth_torch.training_data import SnippetDataConfig, SnippetLatentDataset, vae_encode_fn
+    from rollingdepth_torch.utils.synthetic import random_training_setup
+
+    t0 = time.perf_counter()
+    setup = random_training_setup("cuda", seed=0, clips=TRAIN_CLIPS, frames=TRAIN_FRAMES, res=TRAIN_RES)
+    if not attn.nomax_allowed():
+        raise AssertionError(f"train: the score probe closed the gate on random weights ({setup.score_bound})")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    data = SnippetLatentDataset(vae_encode_fn(setup.vae, TRAIN_VAE_BS), setup.rgb_clips, setup.depth_clips,
+                                SnippetDataConfig(**TRAIN_DATA), device="cuda")
+    encode_s = time.perf_counter() - t0
+    encode_chunks = 2 * TRAIN_CLIPS * math.ceil(TRAIN_FRAMES / TRAIN_VAE_BS)  # rgb and depth of each clip
+
+    step = make_train_step(setup.unet, setup.scheduler, TrainConfig(**TRAIN_CONFIG))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.perf_counter()
+    metrics = []
+    for batch in data.epoch(0):
+        metrics.append(step(dict(batch, text_embed=setup.text_embed), gen))
+        if len(metrics) == TRAIN_STEPS:
+            break
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    rows = [{"step": i, "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "lr": m["lr"],
+             "seconds": step_seconds(m)} for i, m in enumerate(metrics)]
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError(f"train: loss or grad_norm not finite: {rows}")
+    lat_hw = (TRAIN_RES[0] // 8, TRAIN_RES[1] // 8)
+    want = train_kernel_launches(attn, setup.unet.config, TRAIN_DATA["snippet_len"], lat_hw, TRAIN_STEPS,
+                                 encode_chunks)
+    if launches != want:
+        raise AssertionError(f"train: launches {launches} != {want} ({TRAIN_STEPS} steps, "
+                             f"{encode_chunks} encode chunks)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    save_train_state(ckpt, setup.unet, step.optimizer)
+    log({"phase": "train", "clips": TRAIN_CLIPS, "frames": TRAIN_FRAMES, "res": list(TRAIN_RES),
+         "windows": len(data), "batch": TRAIN_DATA["batch_size"], "config": TRAIN_CONFIG, "setup_s": setup_s,
+         "encode_s": encode_s, "encode_chunks": encode_chunks, "steps_s": steps_s, "steps": rows,
+         "launches": launches, "peak_mem_gb": peak, "save_s": time.perf_counter() - t0,
+         "checkpoint_gb": os.path.getsize(ckpt) / 2**30,
+         "unet_params": sum(p.numel() for p in setup.unet.parameters()), "card": smi})
+    return setup, data, step, launches
+
+
+def train_check_phase(torch, attn, fa, setup, data, step, smi, ckpt: str) -> None:
+    """One step twice from the saved state with the same timesteps and
+    noise, with the kernels and on the plain attention path; then each
+    Function's gradients against plain autograd at the path's shapes."""
+    from rollingdepth_torch.training import restore_train_state, step_seconds
+
+    batch = dict(next(iter(data.epoch(1))), text_embed=setup.text_embed)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t = torch.randint(0, setup.scheduler.config.num_train_timesteps, (TRAIN_DATA["batch_size"],), generator=gen,
+                      device="cuda")
+    noise = torch.randn(batch["depth_latent"].shape, generator=gen, device="cuda")
+    params = dict(setup.unet.named_parameters())
+    runs = {}
+    for mode in ("kernels", "plain"):
+        t0 = time.perf_counter()
+        at_step = restore_train_state(ckpt, setup.unet, step.optimizer)
+        restore_s = time.perf_counter() - t0
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with plain_attention() if mode == "plain" else contextlib.nullcontext():
+            m = step(batch, timesteps=t, noise=noise)
+            seconds = step_seconds(m)
+        runs[mode] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "lr": m["lr"],
+                      "nonzero": _grad_flags(torch, params), "params": {n: p.detach().cpu() for n, p in params.items()},
+                      "attn1": {n: p.grad.clone() for n, p in params.items() if ".attn1.to_" in n},
+                      "launches": {fn.__name__: fn.launches for fn in fa.KERNELS}, "seconds": seconds,
+                      "restore_s": restore_s, "from_step": at_step,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    k, p = runs["kernels"], runs["plain"]
+    narrow = unet_kernel_calls(attn, setup.unet.config, TRAIN_DATA["snippet_len"], TRAIN_RES[0] // 8,
+                               TRAIN_RES[1] // 8)["narrow"]
+    if k["launches"]["flash_attention_nomax"] != narrow or sum(p["launches"].values()):
+        raise AssertionError(f"train_check: launches {k['launches']} (want {narrow} K1), plain {p['launches']}")
+    if not abs(k["loss"] - p["loss"]) <= 1e-5 * abs(p["loss"]):
+        raise AssertionError(f"train_check: loss {k['loss']} vs plain {p['loss']}")
+    if not abs(k["grad_norm"] - p["grad_norm"]) <= 1e-4 * abs(p["grad_norm"]):
+        raise AssertionError(f"train_check: grad_norm {k['grad_norm']} vs plain {p['grad_norm']}")
+    missing = [n for n, nz in p["nonzero"].items() if nz and not k["nonzero"][n]]
+    if missing:
+        raise AssertionError(f"train_check: no gradient through the kernels for {missing[:5]} ({len(missing)})")
+    moved = params_within("train_check", k["params"], p["params"], p["lr"])
+    attn1 = {n: (k["attn1"][n] - g).abs().max().item() / g.abs().max().item() for n, g in p["attn1"].items()}
+    checks = {"from_step": p["from_step"], "lr": p["lr"], "t": t.tolist(),
+              "loss": {"kernels": k["loss"], "plain": p["loss"]},
+              "grad_norm": {"kernels": k["grad_norm"], "plain": p["grad_norm"]},
+              "params": moved, "params_with_grad": sum(p["nonzero"].values()), "params_total": len(params),
+              "attn1_projections": len(attn1), "attn1_grad_max_rel_err": max(attn1.values()),
+              "seconds": {"kernels": k["seconds"], "plain": p["seconds"]},
+              "peak_mem_gb": {"kernels": k["peak_mem_gb"], "plain": p["peak_mem_gb"]},
+              "restore_s": [k["restore_s"], p["restore_s"]], "launches": k["launches"]}
+    del runs, k, p
+    step.optimizer.zero_grad(set_to_none=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    grads = []
+    for name, shape, dtype in GRAD_CASES:
+        q, k_, v, g = (torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype)) for _ in range(4))
+        q, k_, v = (x.requires_grad_() for x in (q, k_, v))
+        out_f = fa.FlashAttention.apply(getattr(fa, f"flash_attention_{name}"), q, k_, v, None)
+        out_p = attn.plain_attention(q, k_, v)
+        got = torch.autograd.grad(out_f, (q, k_, v), g, retain_graph=True)
+        ref = torch.autograd.grad(out_p, (q, k_, v), g, retain_graph=True)
+        bound = 2e-2 if dtype == "bfloat16" else 1e-4
+        row = {"kernel": name, "shape": list(shape), "dtype": dtype, "bound": bound}
+        for which, a, b in zip(("dq", "dk", "dv"), got, ref):
+            err, scale = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+            if not (a.isfinite().all() and err <= bound * scale):
+                raise AssertionError(f"train_check: {name} {shape} {dtype} {which} err {err} > {bound} * {scale}")
+            row[which] = {"max_abs_err": err, "scale": scale}
+        row["backward_ms"] = cuda_ms(lambda: torch.autograd.grad(out_f, (q, k_, v), g, retain_graph=True), 3, warmup=1)
+        row["plain_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(out_p, (q, k_, v), g, retain_graph=True), 3,
+                                           warmup=1)
+        grads.append(row)
+        del q, k_, v, g, out_f, out_p, got, ref
+    log({"phase": "train_check", **checks, "function_grads": grads, "card": smi})
+
+
 FULL_RES = (3, 576, 1024)  # the full preset's res 1024, 16:9
 PAPER_FRAMES = 51  # 3 frames at dilation 25 span 51
 PAPER_RES = (3, 432, 768)  # the paper preset's res 768, 16:9
@@ -736,6 +932,15 @@ def main() -> int:
     launches_r = relight_phase(torch, attn, fa, gen, smi)
     log({"phase": "relight_seconds", "seconds": time.perf_counter() - t0})
 
+    # ---- the training path at full SD2 width, fp32, 480x640
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "train_state.pt")
+        setup, data, train_step, launches_t = train_phase(torch, attn, fa, smi, ckpt)
+        train_check_phase(torch, attn, fa, setup, data, train_step, smi, ckpt)
+        del setup, data, train_step
+    log({"phase": "train_seconds", "seconds": time.perf_counter() - t0})
+
     replaces = {
         "nomax": "rollingdepth_tpu/ops/flash_attention.py:103",
         "max": "rollingdepth_tpu/ops/flash_attention.py:44",
@@ -766,7 +971,8 @@ def main() -> int:
     # bound_ms is the 3xTF32 bound
     kernels += [entry(f"flash_attention_{name}_fp32", tpu, flash_src, replaces[name],
                       launches_p[f"flash_attention_{name}"], rows[f"{name}_fp32"], True, design="3xtf32 tma+wgmma",
-                      dtype="float32", launches_by_phase={"paper": launches_p[f"flash_attention_{name}"]})
+                      dtype="float32", launches_by_phase={"paper": launches_p[f"flash_attention_{name}"],
+                                                          "train": launches_t[f"flash_attention_{name}"]})
                 for tpu, name in (("K1", "nomax"), ("K3", "wide"))]
     kernels += [entry(name, tpu, conv_src, f"rollingdepth_tpu/ops/conv3x3.py:{line}", conv_launches[name],
                       conv_rows[name], False)

@@ -6,9 +6,11 @@ a module's weight files (single-file, sharded ``*.index.json`` and
 ``fp16``-variant safetensors, or a torch ``.bin``) and its config, and
 converts a parameter pytree of the JAX package (nested dicts and lists of
 arrays) back into a diffusers-named state dict: ``state_dict_from_jax`` is
-the inverse of ``rollingdepth_tpu.io.weights.state_dict_to_pytree``.  The
-IC-Light transforms (``expand_conv_in``, ``merge_offset``) act on such
-state dicts at load time.
+the inverse of ``rollingdepth_tpu.io.weights.state_dict_to_pytree``, and
+``adamw_state_from_jax`` carries optax's Adam moments across to
+``torch.optim.AdamW`` the same way.  The IC-Light transforms
+(``expand_conv_in``, ``merge_offset``) act on such state dicts at load
+time.
 """
 
 from __future__ import annotations
@@ -80,6 +82,43 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
         elif path and path[-1] == "to_out":
             path = path + ["0"]
         out[".".join(path + [name])] = torch.from_numpy(np.array(t, dtype=np.float32, copy=True))
+    return out
+
+
+def _find_adam_state(opt_state):
+    """The node of an optax state tree with ``count``, ``mu`` and ``nu``."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state_from_jax(opt_state, module: torch.nn.Module) -> Dict[torch.nn.Parameter, Dict[str, torch.Tensor]]:
+    """optax's Adam state as ``torch.optim.AdamW`` per-parameter state of
+    ``module``: ``optimizer.state.update(adamw_state_from_jax(s, module))``.
+
+    ``opt_state`` is a ``ScaleByAdamState`` or a state tree holding one (the
+    ``chain(clip_by_global_norm, adamw)`` state), with numpy leaves.  ``mu``
+    and ``nu`` become ``exp_avg`` and ``exp_avg_sq`` through
+    ``state_dict_from_jax``'s names and layouts (moments are elementwise, so
+    the kernel transposes and the GEGLU fusion carry them exactly);
+    ``count`` becomes every parameter's ``step``."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (count, mu, nu) in opt_state")
+    mu, nu = state_dict_from_jax(adam.mu), state_dict_from_jax(adam.nu)
+    step = float(np.asarray(adam.count))
+    out: Dict[torch.nn.Parameter, Dict[str, torch.Tensor]] = {}
+    for name, p in module.named_parameters():
+        if name not in mu:
+            raise KeyError(f"optax state has no moments for parameter {name!r}")
+        out[p] = {"step": torch.tensor(step, dtype=torch.float32),
+                  "exp_avg": mu[name].to(device=p.device, dtype=p.dtype),
+                  "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype)}
     return out
 
 

@@ -13,6 +13,11 @@ Auto-select takes a kernel on CUDA tensors with L_q >= 256, L_k >= 256 and
 32 <= d <= 512, d a multiple of 8.  ``ROLLINGDEPTH_ATTN=xla`` or ``=flash`` overrides that for
 every call (the names are the JAX package's: ``xla`` means the plain path).
 
+Under autograd (grad mode on and q, k or v requiring grad) a kernel call
+goes through ``flash_attention.FlashAttention``, whose backward recomputes
+plain attention per query block; the plain path is differentiated by
+autograd directly.  With grad mode off the bare kernel wrapper is called.
+
 The plain path is ``matmul`` + fp32 softmax + ``matmul``.  It serves the
 cross-attention to the text tokens, the UNet mid-block (L = 252 at
 768x432), the score probe and every CPU call.
@@ -105,5 +110,8 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None, use_flash: Opt
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if d < 128:
         kernel = fa.flash_attention_nomax if _NOMAX_ALLOWED else fa.flash_attention_max
-        return kernel(q, k, v, scale)
-    return fa.flash_attention_wide(q, k, v, scale)
+    else:
+        kernel = fa.flash_attention_wide
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return fa.FlashAttention.apply(kernel, q, k, v, scale)
+    return kernel(q, k, v, scale)

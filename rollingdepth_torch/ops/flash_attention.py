@@ -11,6 +11,12 @@ its kernel (building it at first use, ``ops/_build.py``) or raises; on a
 CPU tensor it runs ``attention_exp2_reference``, the plain PyTorch version
 of the same arithmetic.  Each wrapper counts its launches in ``.launches``.
 
+``FlashAttention`` makes a wrapper differentiable, as the JAX package's
+``flash_attention`` ``custom_vjp`` does: the wrapper runs forward and only
+q, k and v are saved; the backward recomputes the attention of each
+512-row query block in plain PyTorch and differentiates it
+(``blocked_attention_vjp``).  No kernel of ours runs in the backward.
+
 What bounds the kernels and what their design does about it is noted at the
 top of the CUDA source.
 """
@@ -157,6 +163,50 @@ def flash_attention_wide(q, k, v, scale: Optional[float] = None) -> torch.Tensor
     out = _launch("rd_flash_wide", q, k, v, scale)
     flash_attention_wide.launches += 1
     return out
+
+
+BWD_BLOCK_Q = 512  # the query block of the JAX package's training dispatch
+
+
+def blocked_attention_vjp(q, k, v, scale: Optional[float], grad_out: torch.Tensor, block_q: int = BWD_BLOCK_Q):
+    """dq, dk, dv of plain attention at ``grad_out``, one query block at a
+    time: the VJP of ``_attention_remat_reference`` in
+    ``rollingdepth_tpu/ops/flash_attention.py``.  Each block recomputes its
+    fp32 scores and softmax, so at most one ``[B, H, block_q, L_k]`` score
+    block is live; dk and dv sum over the blocks in fp32."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    k, v = k.detach().requires_grad_(), v.detach().requires_grad_()
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        for i in range(0, q.shape[1], block_q):
+            qc = q[:, i : i + block_q].detach().requires_grad_()
+            logits = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k.float())
+            probs = torch.softmax(logits * scale, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+            gq, gk, gv = torch.autograd.grad(out, (qc, k, v), grad_out[:, i : i + block_q])
+            dq[:, i : i + block_q] = gq
+            dk += gk
+            dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(wrapper, q, k, v, scale)``: ``wrapper``'s
+    output (its kernel on the card) with the blocked plain backward."""
+
+    @staticmethod
+    def forward(ctx, wrapper, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return wrapper(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = blocked_attention_vjp(q, k, v, ctx.scale, grad_out)
+        return None, dq, dk, dv, None
 
 
 flash_attention_nomax.launches = 0

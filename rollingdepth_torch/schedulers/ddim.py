@@ -98,13 +98,23 @@ class DDIMScheduler:
             prev = prev + float(std) * noise
         return prev.to(sample.dtype), pred_x0.to(sample.dtype)
 
-    def add_noise(self, original: torch.Tensor, noise: torch.Tensor, timesteps) -> torch.Tensor:
-        """Forward-noise clean samples to per-sample ``timesteps``."""
-        ac = torch.as_tensor(self.alphas_cumprod, device=original.device)
-        t = torch.as_tensor(timesteps, device=original.device).long()
+    def _sqrt_alphas(self, sample: torch.Tensor, timesteps) -> Tuple[torch.Tensor, torch.Tensor]:
+        """sqrt(a_t) and sqrt(1 - a_t) at ``timesteps`` ([B], [B, n] or a
+        scalar), shaped to broadcast over the sample's trailing dims."""
+        ac = torch.as_tensor(self.alphas_cumprod, device=sample.device)
+        t = torch.as_tensor(timesteps, device=sample.device).long()
         sqrt_a = ac[t].sqrt()
         sqrt_1ma = (1.0 - ac[t]).sqrt()
-        extra = original.ndim - sqrt_a.ndim
-        sqrt_a = sqrt_a.reshape(sqrt_a.shape + (1,) * extra)
-        sqrt_1ma = sqrt_1ma.reshape(sqrt_1ma.shape + (1,) * extra)
+        extra = (1,) * (sample.ndim - sqrt_a.ndim)
+        return sqrt_a.reshape(sqrt_a.shape + extra), sqrt_1ma.reshape(sqrt_1ma.shape + extra)
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor, timesteps) -> torch.Tensor:
+        """Forward-noise clean samples to per-sample ``timesteps``."""
+        sqrt_a, sqrt_1ma = self._sqrt_alphas(original, timesteps)
         return (sqrt_a * original.float() + sqrt_1ma * noise.float()).to(original.dtype)
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor, timesteps) -> torch.Tensor:
+        """The v-prediction target ``sqrt(a_t) noise - sqrt(1 - a_t) sample``,
+        in fp32, in the sample's dtype."""
+        sqrt_a, sqrt_1ma = self._sqrt_alphas(sample, timesteps)
+        return (sqrt_a * noise.float() - sqrt_1ma * sample.float()).to(sample.dtype)

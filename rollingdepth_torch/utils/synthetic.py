@@ -7,10 +7,15 @@ from a seeded ``torch.Generator`` on the device:
   the OpenCLIP ViT-H text tower, a v-prediction DDIM with trailing spacing);
 - relight: the IC-Light stack (the SD1.5 UNet as a 4-channel base and a
   12-channel merged copy, the SD VAE, CLIP ViT-L, DPM++ 2M SDE Karras, the
-  RMBG U²-Net) with a byte-level tokenizer in place of CLIP's BPE files.
+  RMBG U²-Net) with a byte-level tokenizer in place of CLIP's BPE files;
+- training: the depth model's UNet, VAE, scheduler and empty-prompt
+  embedding in fp32, with synthetic rgb and depth clips.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
 
 import torch
 
@@ -51,6 +56,11 @@ FULL_PRESET = preset_kwargs("full")  # res 1024, dilations [1, 10, 25], 10 refin
 PAPER_PRESET = preset_kwargs("paper")  # fp32, uncapped dilations, exact merge, stride-1 refine windows
 
 
+# rollingdepth-v1-0's scheduler: v-prediction DDIM, scaled-linear betas, trailing spacing
+DEPTH_SCHEDULER = DDIMConfig(beta_schedule="scaled_linear", timestep_spacing="trailing",
+                             prediction_type="v_prediction", steps_offset=1)
+
+
 @torch.no_grad()
 def random_depth_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snippet_batch: int = 8):
     """Returns (pipeline, score-probe bound).  The max-free gate is
@@ -62,10 +72,43 @@ def random_depth_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snip
     text = init_random_(CLIPTextModel(CLIPTextConfig(), device=dev), gen).eval()
     bound = calibrate_nomax(unet)
     empty = text(torch.tensor([EMPTY_PROMPT_IDS], device=dev))
-    sched = DDIMScheduler(DDIMConfig(beta_schedule="scaled_linear", timestep_spacing="trailing",
-                                     prediction_type="v_prediction", steps_offset=1))
-    pipe = RollingDepthPipeline(unet, vae, sched, empty, dtype=dtype, snippet_batch=snippet_batch, device=dev)
+    pipe = RollingDepthPipeline(unet, vae, DDIMScheduler(DEPTH_SCHEDULER), empty, dtype=dtype,
+                                snippet_batch=snippet_batch, device=dev)
     return pipe, bound
+
+
+@dataclasses.dataclass
+class TrainingSetup:
+    unet: UNet2DConditionModel  # fp32, trainable
+    vae: AutoencoderKL  # fp32, eval
+    scheduler: DDIMScheduler
+    text_embed: torch.Tensor  # [1, 2, 1024]: the unpadded empty prompt, as the loader embeds it
+    rgb_clips: List[torch.Tensor]  # each [frames, 3, H, W] in [-1, 1]
+    depth_clips: List[torch.Tensor]  # each [frames, 1, H, W] in [-1, 1]
+    score_bound: float
+
+
+@torch.no_grad()
+def random_training_setup(device=None, seed: int = 0, clips: int = 2, frames: int = 8,
+                          res: Tuple[int, int] = (480, 640)) -> TrainingSetup:
+    """rollingdepth-v1-0 at full width with seeded random weights, in fp32
+    as a trainer holds it: the SD2 UNet (8 input channels), the SD VAE, the
+    empty-prompt embedding of the OpenCLIP ViT-H text tower (the tower is
+    dropped), the depth scheduler, and ``clips`` synthetic rgb and depth
+    clips of ``frames`` frames at ``res`` (H, W), drawn on the device.  The
+    max-free gate is calibrated on the UNet, as the loader does."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    unet = init_random_(UNet2DConditionModel(UNetConfig.sd21(), device=dev), gen)
+    vae = init_random_(AutoencoderKL(VAEConfig(), device=dev), gen).eval()
+    text = init_random_(CLIPTextModel(CLIPTextConfig(), device=dev), gen).eval()
+    empty = text(torch.tensor([EMPTY_PROMPT_IDS], device=dev))
+    del text
+    bound = calibrate_nomax(unet)
+    h, w = res
+    rgb = [torch.rand((frames, 3, h, w), generator=gen, device=dev) * 2 - 1 for _ in range(clips)]
+    depth = [torch.rand((frames, 1, h, w), generator=gen, device=dev) * 2 - 1 for _ in range(clips)]
+    return TrainingSetup(unet, vae, DDIMScheduler(DEPTH_SCHEDULER), empty, rgb, depth, bound)
 
 
 # the relight CLI's call: t2i init, dilations [1, 25], windows of 3, a 40-step

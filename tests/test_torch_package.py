@@ -42,7 +42,7 @@ def test_port_imports_no_jax(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"flash_attention.py", "attention.py", "unet.py", "rollingdepth.py", "chip_smoke.py", "cli.py", "video.py",
-            "native_video.py", "colorize.py", "eval.py"} <= names
+            "native_video.py", "colorize.py", "eval.py", "training.py", "training_data.py"} <= names
 
 
 def _no_card():

@@ -240,3 +240,80 @@ def test_relight_launches_match_a_run(monkeypatch):
     want = cs.relight_kernel_launches(attn, pipe, pipe.last_chunks, (24, 24), 3, "flash_attention_nomax")
     assert seen["narrow"] == want["flash_attention_nomax"] > 0
     assert seen["wide"] == want["flash_attention_wide"] > pipe.last_chunks["encode"] + pipe.last_chunks["decode"]
+
+
+# ---- the train phase: launches a step implies, and the parameter check
+
+
+@pytest.mark.parametrize("lat_hw, narrow", [((60, 80), 15), ((48, 64), 15)])
+def test_train_launches_at_sd2_width(lat_hw, narrow):
+    """480x640 (the smoke's size) and 384x512: levels 0-2 on K1 (5 calls
+    each), the mid-block (3 x 8 x 10 = 240 tokens) plain; one K3 launch per
+    encode chunk."""
+    from rollingdepth_torch.models.unet import UNetConfig
+    from rollingdepth_torch.ops import attention as attn
+
+    assert cs.train_kernel_launches(attn, UNetConfig.sd21(), 3, lat_hw, 4, 8) == {
+        "flash_attention_nomax": narrow * 4, "flash_attention_max": 0, "flash_attention_wide": 8}
+
+
+def test_train_launches_match_a_run(monkeypatch):
+    """The rule against the attention calls the dataset's encode and two
+    train steps send to the auto rule's kernels (on the CPU, the dispatch
+    spied on as if the tensors lay on the card), with a UNet whose level 0
+    is narrow and level 1 wide above 256 tokens, and a VAE whose mid-block
+    head is wide."""
+    import dataclasses
+
+    from rollingdepth_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from rollingdepth_torch.models.vae import AutoencoderKL, VAEConfig
+    from rollingdepth_torch.ops import attention as attn
+    from rollingdepth_torch.schedulers.ddim import DDIMScheduler
+    from rollingdepth_torch.training import TrainConfig, make_train_step
+    from rollingdepth_torch.training_data import SnippetDataConfig, SnippetLatentDataset, vae_encode_fn
+
+    cfg = UNetConfig(sample_size=8, block_out_channels=(64, 256), attention_head_dim=(2, 1), norm_num_groups=8,
+                     cross_attention_dim=8, layers_per_block=1, down_block_types=("CrossAttnDownBlock2D",
+                                                                                 "CrossAttnDownBlock2D"),
+                     up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"))
+    torch.manual_seed(0)
+    unet = UNet2DConditionModel(cfg, device="cpu")
+    vae = AutoencoderKL(dataclasses.replace(VAEConfig.tiny(), block_out_channels=(128, 128)), device="cpu")
+    seen = {"narrow": 0, "wide": 0}
+    rule = attn.auto_selects_kernel
+
+    def spy(on_cuda, lq, lk, d):
+        if rule(True, lq, lk, d):
+            seen["narrow" if d < 128 else "wide"] += 1
+        return False
+
+    monkeypatch.setattr(attn, "auto_selects_kernel", spy)
+    rng = np.random.default_rng(0)
+    rgb = [rng.uniform(-1, 1, (5, 3, 40, 40)).astype(np.float32)]
+    depth = [rng.uniform(-1, 1, (5, 1, 40, 40)).astype(np.float32)]
+    data = SnippetLatentDataset(vae_encode_fn(vae, 2), rgb, depth, SnippetDataConfig(dilations=(1,), batch_size=1),
+                                device="cpu")
+    step = make_train_step(unet, DDIMScheduler(), TrainConfig())
+    for i, batch in enumerate(data.epoch(0)):
+        step(dict(batch, text_embed=torch.zeros((1, 2, 8))))
+        if i == 1:
+            break
+    monkeypatch.undo()
+    want = cs.train_kernel_launches(attn, cfg, 3, (20, 20), 2, 2 * 3)  # 5 frames in chunks of 2, rgb and depth
+    assert seen["narrow"] == want["flash_attention_nomax"] > 0
+    assert seen["wide"] == want["flash_attention_wide"] > 6
+
+
+def test_params_within_allows_a_sign_flip_only():
+    """Two lr apart (a flipped first Adam update) passes; three fail, as does
+    a missing parameter."""
+    lr = 1e-3
+    ref = {"a": torch.zeros(4), "b": torch.ones(2, 3)}
+    got = {"a": torch.tensor([0.0, 2 * lr, -2 * lr, 1e-7]), "b": torch.ones(2, 3)}
+    out = cs.params_within("flip", got, ref, lr)
+    assert out["param"] == "a" and out["max_abs_diff"] == pytest.approx(2 * lr) and out["tol"] == pytest.approx(
+        1e-6 + 2.2 * lr)
+    with pytest.raises(AssertionError, match="moved apart"):
+        cs.params_within("far", {"a": got["a"], "b": ref["b"] + 3 * lr}, ref, lr)
+    with pytest.raises(AssertionError, match="names"):
+        cs.params_within("missing", {"a": got["a"]}, ref, lr)
