@@ -70,6 +70,15 @@ Phases, each of which must pass or the script exits non-zero:
            ``FlashAttention``'s dq, dk, dv against autograd through
            ``plain_attention`` (K1 bf16 and fp32, K2 bf16, K3 fp32) with the
            times of both backwards.
+11. parallel ranks of a (dp, tp) mesh on this one card over gloo
+           (``parallel/``), each against one process: 4 ranks at (2, 2) run
+           the fast preset on 12 frames at 432x768 in bf16 (windows within
+           2e-2 of their scale) and in fp32 with the solves cut to 0 steps
+           (windows 1e-4, depth 1e-3) with each rank's launches against its
+           chunks at its local heads, then one fp32 train step at 256x320
+           (loss rtol 1e-5, grad_norm rtol 1e-4, parameters within
+           ``PAR_PARAMS_TOL``, which a skipped update on one shard exceeds);
+           2 ranks at (2, 1) run the relight call on 6 frames (2e-2).
 In main, full, paper, relight and train the kernel launch counts must
 equal what the chunk and step counts imply (``attention_kernel_launches``,
 ``relight_kernel_launches``, ``train_kernel_launches``); the depth must be
@@ -82,7 +91,8 @@ Prints the card's name and power limit, a JSON line per measurement, a
 K1-K10; K9 has two, one per instantiation; K1 and K3 have a second row for
 their fp32 instantiation, the paper path's), and as its last line
 ``{"ok": true, "device": {...}}``.  The kernels phase also times K1, K2
-and K3 at the relight path's shapes (``relight_shapes`` in their rows).
+and K3 at the relight path's shapes (``relight_shapes`` in their rows), and
+K1 bf16 and fp32 at the parallel phase's tp = 2 shapes (``tp_shapes``).
 """
 
 from __future__ import annotations
@@ -127,15 +137,9 @@ def depth_drift(a, b) -> dict:
             "corr": float(np.corrcoef(a.ravel(), b.ravel())[0, 1])}
 
 
-def unet_kernel_calls(attn, cfg, n: int, h: int, w: int) -> dict:
-    """Self-attention calls of one UNet call that take a kernel, by head
-    width: the transformer blocks level by level (each latent side halves,
-    rounding up, at every downsampler), at n * h_l * w_l tokens, by the
-    dispatch's auto rule (``ops/attention.py``): ``narrow`` (d < 128, K1 or
-    K2) and ``wide`` (K3).  SD2 at 768x432: 15 narrow (its d = 64 mid-block
-    under the rule's 256 tokens); SD1.5 on 3 frames at 720x640: 10 narrow
-    (d = 40, 80) and 6 wide (d = 160, the mid-block's 360 tokens included),
-    on one frame 10 and 5 (the mid-block's 120 tokens stay plain)."""
+def kernel_calls(attn, cfg, n: int, h: int, w: int, tp: int = 1) -> list:
+    """Each self-attention call of one UNet call that takes a kernel, as
+    (``narrow`` or ``wide``, tokens, local heads, d) (see ``unet_kernel_calls``)."""
     sizes = [(h, w)]
     for _ in cfg.block_out_channels[1:]:
         h, w = -(-h // 2), -(-w // 2)
@@ -145,12 +149,32 @@ def unet_kernel_calls(attn, cfg, n: int, h: int, w: int) -> dict:
               if kind == "CrossAttnDownBlock2D"] + [(bottom, 1)]
     blocks += [(bottom - i, cfg.layers_per_block + 1) for i, kind in enumerate(cfg.up_block_types)
                if kind == "CrossAttnUpBlock2D"]
-    calls = {"narrow": 0, "wide": 0}
+    calls = []
     for level, count in blocks:
         tokens = n * sizes[level][0] * sizes[level][1]
-        d = cfg.block_out_channels[level] // cfg.heads_at(level)
+        heads = cfg.heads_at(level)
+        d = cfg.block_out_channels[level] // heads
         if attn.auto_selects_kernel(True, tokens, tokens, d):
-            calls["narrow" if d < 128 else "wide"] += count
+            local = heads // tp if heads % tp == 0 else heads
+            calls += [("narrow" if d < 128 else "wide", tokens, local, d)] * count
+    return calls
+
+
+def unet_kernel_calls(attn, cfg, n: int, h: int, w: int, tp: int = 1) -> dict:
+    """Self-attention calls of one UNet call that take a kernel, by head
+    width: the transformer blocks level by level (each latent side halves,
+    rounding up, at every downsampler), at n * h_l * w_l tokens, by the
+    dispatch's auto rule (``ops/attention.py``): ``narrow`` (d < 128, K1 or
+    K2) and ``wide`` (K3).  SD2 at 768x432: 15 narrow (its d = 64 mid-block
+    under the rule's 256 tokens); SD1.5 on 3 frames at 720x640: 10 narrow
+    (d = 40, 80) and 6 wide (d = 160, the mid-block's 360 tokens included),
+    on one frame 10 and 5 (the mid-block's 120 tokens stay plain).  On a tp
+    shard (``parallel/sharding.py``) a level whose heads tp divides runs
+    heads / tp of them with the same d (``kernel_calls``), so a call takes
+    the kernel it takes unsharded."""
+    calls = {"narrow": 0, "wide": 0}
+    for kind, *_ in kernel_calls(attn, cfg, n, h, w, tp):
+        calls[kind] += 1
     return calls
 
 
@@ -161,14 +185,16 @@ def narrow_kernel_calls(attn, cfg, n: int, h: int, w: int) -> int:
     return unet_kernel_calls(attn, cfg, n, h, w)["narrow"]
 
 
-def attention_kernel_launches(attn, pipe, chunks, lat_hw, snippet_len: int, refine_len: int, narrow: str) -> dict:
+def attention_kernel_launches(attn, pipe, chunks, lat_hw, snippet_len: int, refine_len: int, narrow: str,
+                              tp: int = 1) -> dict:
     """The launches a pipeline call implies from its chunk counts: the
     narrow kernel ``narrow`` per UNet chunk (snippets and refinement), the
     wide kernel once per VAE encode and decode chunk (the mid-block's d=512
-    head)."""
+    head).  On a rank of a (dp, tp) mesh: that rank's chunks, each UNet
+    call on its local heads (``unet_kernel_calls``)."""
     cfg = pipe.unet.config
-    n_narrow = (narrow_kernel_calls(attn, cfg, snippet_len, *lat_hw) * chunks["unet"]
-                + narrow_kernel_calls(attn, cfg, refine_len, *lat_hw) * chunks.get("refine_unet", 0))
+    n_narrow = (unet_kernel_calls(attn, cfg, snippet_len, *lat_hw, tp=tp)["narrow"] * chunks["unet"]
+                + unet_kernel_calls(attn, cfg, refine_len, *lat_hw, tp=tp)["narrow"] * chunks.get("refine_unet", 0))
     want = {"flash_attention_nomax": 0, "flash_attention_max": 0,
             "flash_attention_wide": chunks["encode"] + chunks["decode"]}
     want[narrow] = n_narrow
@@ -425,9 +451,15 @@ def kernel_phase(torch, fa):
         ("wide", (8, 360, 8, 160), 360, torch.bfloat16, "relight"),
         ("wide", (8, 460, 8, 160), 460, torch.bfloat16, "relight"),
         ("wide", (4, 7200, 1, 512), 7200, torch.bfloat16, "relight"),
+        # the parallel phase's tp = 2 shards at 432x768: a dp rank's chunk of
+        # 6 windows, level 1 on 5 of its 10 heads, level 2 on 10 of its 20
+        ("nomax", (6, 3888, 5, 64), 3888, torch.bfloat16, "tp"),
+        ("nomax", (6, 1008, 10, 64), 1008, torch.bfloat16, "tp"),
+        ("nomax", (6, 3888, 5, 64), 3888, torch.float32, "tp"),
+        ("nomax", (6, 1008, 10, 64), 1008, torch.float32, "tp"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {"relight": []}
+    rows = {"relight": [], "tp": []}
     for name, (b, lq, h, d), lk, dtype, row_key in cases:
         q = torch.randn((b, lq, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, lk, h, d), generator=gen, device="cuda").to(dtype)
@@ -452,8 +484,8 @@ def kernel_phase(torch, fa):
                **errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         log(row)
-        if row_key == "relight":
-            rows["relight"].append(row)
+        if row_key in ("relight", "tp"):
+            rows[row_key].append(row)
         elif row_key:
             rows[row_key] = row
         del q, k, v, got, ref
@@ -480,7 +512,8 @@ def relight_phase(torch, attn, fa, gen, smi):
     windows of 3) whose launches must equal what its chunks imply; one bf16
     12-channel UNet chunk against the plain attention path; a 6-frame fp32
     run (solves cut to 0 steps) against the plain attention path; the RMBG
-    matte on one chunk of feeds.  Returns the timed call's launches."""
+    matte on one chunk of feeds.  Returns the timed call's launches and the
+    parallel phase's single-process relight results."""
     from rollingdepth_torch.pipelines.rollingimg import encode_prompt_pair, rmbg_matte
     from rollingdepth_torch.utils.synthetic import RELIGHT_CALL, random_relight_pipeline
 
@@ -499,6 +532,12 @@ def relight_phase(torch, attn, fa, gen, smi):
     pipe.forward(fg[:6], bg[:6], **RELIGHT_CALL)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    # the parallel phase's reference (c): 6 frames, solves cut to 0 steps, every window kept
+    call6 = dict(RELIGHT_CALL, coalign_kwargs={"num_iterations": 0}, keep_snippets=True)
+    ref6 = pipe.forward(fg[:6], bg[:6], **call6)
+    parallel_ref = {"fg": fg[:6].cpu(), "bg": bg[:6].cpu(), "call": call6, "snippet_ls": ref6.snippet_ls,
+                    "rgb": np.concatenate([ref6.R_pred, ref6.G_pred, ref6.B_pred], axis=1)}
+    del ref6
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
@@ -554,7 +593,7 @@ def relight_phase(torch, attn, fa, gen, smi):
         raise AssertionError(f"relight fp32 with kernels vs plain attention: {drift}")
     log({"phase": "relight_check", **checks, "card": smi})
     del pipe32
-    return launches
+    return launches, parallel_ref
 
 
 TRAIN_CLIPS, TRAIN_FRAMES, TRAIN_RES = 2, 8, (480, 640)
@@ -735,6 +774,250 @@ def train_check_phase(torch, attn, fa, setup, data, step, smi, ckpt: str) -> Non
     log({"phase": "train_check", **checks, "function_grads": grads, "card": smi})
 
 
+# ---- the parallel phase: ranks of a (dp, tp) mesh, all on the one card, over gloo
+
+PARALLEL_MESH = (2, 2)
+PARALLEL_FRAMES = 12  # fast preset windows: 10 at dilation 1, 2 at dilation 25 capped to 5
+RELIGHT_MESH = (2, 1)
+RANK_TIMEOUT = 300  # seconds a spawn of ranks may take in all; a failed or hung rank ends it sooner
+# four ranks peak at ~14.1 GiB each in the train step (PERF.md); what this process may keep
+PARENT_RESERVED_GB = 4.0
+PAR_TRAIN_FRAMES, PAR_TRAIN_RES = 6, (256, 320)
+# windows of 3 at dilation 1 on 6 frames: one global batch of 4 snippets
+PAR_TRAIN_DATA = dict(snippet_len=3, dilations=(1,), cap_dilation=False, batch_size=4, seed=0)
+# (d)'s parameters against one process's after the step: sound runs read
+# 1.78e-6, an update skipped on one shard about lr = 3e-5 (PERF.md)
+PAR_PARAMS_TOL = 1e-5
+
+
+def _free_card(torch) -> dict:
+    """Free what this process holds cached on the card, cuBLAS's workspaces
+    too (a live block pins its whole cached segment); returns what it still
+    holds, and the card's memory in use (all processes)."""
+    import gc
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()  # cuBLAS keeps its workspaces in the caching allocator
+    torch.cuda.empty_cache()
+    used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True).stdout.strip()
+    return {"allocated_gb": torch.cuda.memory_allocated() / 2**30, "reserved_gb": torch.cuda.memory_reserved() / 2**30,
+            "card_used_mib": used}
+
+
+def _max_err(torch, got, ref) -> dict:
+    got, ref = torch.as_tensor(got).float().cpu(), torch.as_tensor(ref).float().cpu()
+    if got.shape != ref.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    return {"max_abs_err": (got - ref).abs().max().item(), "scale": ref.abs().max().item(),
+            "finite": bool(got.isfinite().all())}
+
+
+def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> dict:
+    """One rank of the (2, 2) mesh: (a) the fast preset at full SD2 width on
+    12 frames in bf16 and in fp32 (solves cut to 0 steps) with (b) its
+    launches, then (d) one fp32 train step; each against the single-process
+    results in ``spec_path`` and ``params_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from rollingdepth_torch.ops import attention as attn
+    from rollingdepth_torch.ops import flash_attention as fa
+    from rollingdepth_torch.parallel.mesh import axis, make_mesh
+    from rollingdepth_torch.parallel.sharding import shard_tensor, unet_param_sharding
+    from rollingdepth_torch.training import TrainConfig, make_train_step, step_seconds
+    from rollingdepth_torch.utils.synthetic import FAST_PRESET, random_depth_pipeline, random_training_setup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    mesh = make_mesh(PARALLEL_MESH, "cuda")
+    tp, tp_rank, _ = axis(mesh, "tp")
+    out = {"rank": rank, "backend": dist.get_backend(), "device": torch.cuda.current_device(),
+           "dp": axis(mesh, "dp")[:2], "tp": (tp, tp_rank)}
+    frames = spec["frames"].cuda()
+    lat_hw = (frames.shape[2] // 8, frames.shape[3] // 8)
+    no_solve = dict(FAST_PRESET, latent_coalign_kwargs={"num_iterations": 0}, coalign_kwargs={"num_iterations": 0})
+    for dtype, kw in ((torch.bfloat16, FAST_PRESET), (torch.float32, no_solve)):
+        name = str(dtype).split(".")[-1]
+        t0 = time.perf_counter()
+        pipe, bound = random_depth_pipeline("cuda", dtype, seed=0, mesh=mesh)
+        fa.reset_launch_counts()
+        t1 = time.perf_counter()
+        o = pipe(input_frames=frames, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        chunks = dict(pipe.last_chunks)
+        res = {"launches": {fn.__name__: fn.launches for fn in fa.KERNELS},
+               "want": attention_kernel_launches(attn, pipe, chunks, lat_hw, 3, 3, "flash_attention_nomax", tp=tp),
+               "chunks": chunks, "local_heads": [c[2] for c in kernel_calls(attn, pipe.unet.config, 3, *lat_hw, tp)],
+               "score_bound": bound, "nomax_allowed": attn.nomax_allowed(),
+               "windows": _max_err(torch, torch.cat(pipe.last_window_latents), spec[f"{name}_windows"]),
+               "setup_s": t1 - t0, "call_s": t2 - t1}
+        if dtype == torch.float32:
+            res["depth"] = _max_err(torch, o.depth_pred, spec["float32_depth"])
+        out[name] = res
+        del pipe, o
+        _free_card(torch)
+
+    # (d) one fp32 train step of the global batch, this rank's dp block of it
+    t0 = time.perf_counter()
+    setup = random_training_setup("cuda", seed=0, clips=1, frames=PAR_TRAIN_FRAMES, res=PAR_TRAIN_RES, mesh=mesh)
+    unet, sched = setup.unet, setup.scheduler
+    del setup
+    out["memory_before_step"] = _free_card(torch)
+    step = make_train_step(unet, sched, TrainConfig(), mesh=mesh)
+    split = unet_param_sharding(unet, mesh)
+    # a planted fault for the parameter bound: this rank's shard of one split
+    # parameter as if its update had been skipped
+    planted = next(n for n, d in split.items() if d is not None)
+    planted_before = dict(unet.named_parameters())[planted].detach().clone()
+    batch = {k: v.cuda() for k, v in spec["train_batch"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    m = step(batch, timesteps=spec["train_t"].cuda(), noise=spec["train_noise"].cuda())
+    seconds = step_seconds(m)
+    t2 = time.perf_counter()
+    ref = torch.load(params_path, mmap=True, weights_only=True)
+    diffs = {}
+    for n, p in unet.named_parameters():
+        want = ref[n] if split[n] is None else shard_tensor(n, ref[n], split[n], tp_rank, tp)
+        diffs[n] = (p.detach() - want.to(p.device)).abs().max().item()
+        if n == planted:
+            skipped = (planted_before - want.to(p.device)).abs().max().item()
+    worst = max(diffs, key=diffs.get)
+    out["train"] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "lr": m["lr"],
+                    "params_max_abs_diff": diffs[worst], "param": worst,
+                    "skipped_update": {"param": planted, "max_abs_diff": skipped}, "params_sharded": sum(
+                        d is not None for d in split.values()),
+                    "local_params": sum(p.numel() for p in unet.parameters()), "step_seconds": seconds,
+                    "setup_s": t1 - t0, "step_s": t2 - t1, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                    "peak_reserved_gb": torch.cuda.max_memory_reserved() / 2**30}
+    return out
+
+
+def parallel_relight_rank(rank: int, spec_path: str) -> dict:
+    """One rank of the (2, 1) mesh: (c) the relight call on 6 frames at
+    720x640 in bf16 with the solves cut to 0 steps, against one process."""
+    import torch
+    import torch.distributed as dist
+
+    from rollingdepth_torch.ops import attention as attn
+    from rollingdepth_torch.ops import flash_attention as fa
+    from rollingdepth_torch.parallel.mesh import axis, make_mesh
+    from rollingdepth_torch.utils.synthetic import random_relight_pipeline
+
+    spec = torch.load(spec_path, weights_only=False)
+    mesh = make_mesh(RELIGHT_MESH, "cuda")
+    t0 = time.perf_counter()
+    pipe, _ = random_relight_pipeline("cuda", torch.bfloat16, seed=0, mesh=mesh)
+    fa.reset_launch_counts()
+    t1 = time.perf_counter()
+    o = pipe.forward(spec["fg"].cuda(), spec["bg"].cuda(), **spec["call"])
+    torch.cuda.synchronize()
+    rgb = np.concatenate([o.R_pred, o.G_pred, o.B_pred], axis=1)
+    chunks = dict(pipe.last_chunks)
+    lat_hw = (spec["fg"].shape[2] // 8, spec["fg"].shape[3] // 8)
+    return {"rank": rank, "backend": dist.get_backend(), "dp": axis(mesh, "dp")[:2], "chunks": chunks,
+            "launches": {fn.__name__: fn.launches for fn in fa.KERNELS},
+            "want": relight_kernel_launches(attn, pipe, chunks, lat_hw, 3, "flash_attention_nomax"),
+            "windows": [_max_err(torch, g, r) for g, r in zip(o.snippet_ls, spec["snippet_ls"])],
+            "rgb": _max_err(torch, rgb, spec["rgb"]), "setup_s": t1 - t0, "call_s": time.perf_counter() - t1}
+
+
+def parallel_phase(torch, smi, refs: dict, tmp: str) -> dict:
+    """Ranks on the one card over gloo, each against one process: (a) and
+    (b) on a (2, 2) mesh of 4 ranks with (d) in the same ranks, (c) on a
+    (2, 1) mesh of 2 ranks.  ``refs``: the single-process results the earlier
+    phases kept.  Returns the ranks' launches by check."""
+    from rollingdepth_torch.parallel.launch import run_ranks
+    from rollingdepth_torch.training import TrainConfig, make_train_step
+    from rollingdepth_torch.training_data import SnippetDataConfig, SnippetLatentDataset, vae_encode_fn
+    from rollingdepth_torch.utils.synthetic import random_training_setup
+
+    t0 = time.perf_counter()
+    # (d)'s reference: the single-process step on the global batch, then the card is freed
+    setup = random_training_setup("cuda", seed=0, clips=1, frames=PAR_TRAIN_FRAMES, res=PAR_TRAIN_RES)
+    data = SnippetLatentDataset(vae_encode_fn(setup.vae, 4), setup.rgb_clips, setup.depth_clips,
+                                SnippetDataConfig(**PAR_TRAIN_DATA), device="cuda")
+    batch = dict(next(iter(data.epoch(0))), text_embed=setup.text_embed)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t = torch.randint(0, setup.scheduler.config.num_train_timesteps, (PAR_TRAIN_DATA["batch_size"],),
+                      generator=gen, device="cuda")
+    noise = torch.randn(batch["depth_latent"].shape, generator=gen, device="cuda")
+    m = make_train_step(setup.unet, setup.scheduler, TrainConfig())(batch, timesteps=t, noise=noise)
+    single = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "lr": m["lr"]}
+    spec_path, params_path, relight_path = (os.path.join(tmp, f) for f in ("par.pt", "params.pt", "relight.pt"))
+    torch.save({n: p.detach().cpu() for n, p in setup.unet.named_parameters()}, params_path)
+    torch.save(dict(refs["depth"], train_batch={k: v.detach().cpu() for k, v in batch.items()}, train_t=t.cpu(),
+                    train_noise=noise.cpu()), spec_path)
+    torch.save(refs["relight"], relight_path)
+    del setup, data, batch, m, t, noise
+    parent = _free_card(torch)
+    log({"phase": "parallel_references", "train_single": single, "seconds": time.perf_counter() - t0,
+         "parent_memory_at_spawn": parent})
+    if parent["reserved_gb"] > PARENT_RESERVED_GB:
+        segments = sorted(((seg["total_size"], [b["size"] for b in seg["blocks"] if b["state"] == "active_allocated"])
+                           for seg in torch.cuda.memory_snapshot()), reverse=True)[:8]
+        raise AssertionError(f"parallel: this process still holds {parent['reserved_gb']:.1f} GiB of the card; "
+                             f"the ranks need it.  Largest segments (bytes, live blocks): {segments}")
+
+    # the ranks' allocators grow segments in place: less of the card lost to fragments
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(parallel_depth_train_rank, 4, args=(spec_path, params_path), timeout=RANK_TIMEOUT)
+        depth_train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        relight = run_ranks(parallel_relight_rank, 2, args=(relight_path,), timeout=RANK_TIMEOUT)
+        relight_s = time.perf_counter() - t0
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+
+    for r in ranks:
+        for name, max_rel in (("bfloat16", 2e-2), ("float32", 1e-4)):
+            res = r[name]
+            if res["launches"] != res["want"]:
+                raise AssertionError(f"parallel rank {r['rank']} {name}: launches {res['launches']} != {res['want']} "
+                                     f"implied by chunks {res['chunks']}")
+            w = res["windows"]
+            if not (w["finite"] and w["max_abs_err"] <= max_rel * w["scale"]):
+                raise AssertionError(f"parallel rank {r['rank']} {name}: windows {w} beyond {max_rel} of the scale")
+        d = r["float32"]["depth"]
+        if not (d["finite"] and d["max_abs_err"] <= 1e-3):
+            raise AssertionError(f"parallel rank {r['rank']} fp32 depth {d} beyond 1e-3")
+        tr = r["train"]
+        if not abs(tr["loss"] - single["loss"]) <= 1e-5 * abs(single["loss"]):
+            raise AssertionError(f"parallel rank {r['rank']}: loss {tr['loss']} vs one process {single['loss']}")
+        if not abs(tr["grad_norm"] - single["grad_norm"]) <= 1e-4 * abs(single["grad_norm"]):
+            raise AssertionError(f"parallel rank {r['rank']}: grad_norm {tr['grad_norm']} vs {single['grad_norm']}")
+        skipped = tr["skipped_update"]["max_abs_diff"]
+        if not tr["params_max_abs_diff"] <= PAR_PARAMS_TOL < skipped:
+            raise AssertionError(f"parallel rank {r['rank']}: {tr['param']} moved apart by {tr['params_max_abs_diff']}"
+                                 f", a skipped update by {skipped}; bound {PAR_PARAMS_TOL}")
+    for r in relight:
+        if r["launches"] != r["want"]:
+            raise AssertionError(f"parallel relight rank {r['rank']}: launches {r['launches']} != {r['want']} "
+                                 f"implied by chunks {r['chunks']}")
+        for w in r["windows"] + [r["rgb"]]:
+            if not (w["finite"] and w["max_abs_err"] <= 2e-2 * w["scale"]):
+                raise AssertionError(f"parallel relight rank {r['rank']}: {w} beyond 2e-2 of the scale")
+    log({"phase": "parallel", "mesh": list(PARALLEL_MESH), "relight_mesh": list(RELIGHT_MESH),
+         "backend": sorted({r["backend"] for r in ranks + relight}), "frames": PARALLEL_FRAMES,
+         "train_single": single, "ranks": ranks, "relight_ranks": relight,
+         "seconds": {"depth_train_ranks": depth_train_s, "relight_ranks": relight_s},
+         "card": smi})
+    launches = {}
+    for check, rs in (("bfloat16", ranks), ("float32", ranks)):
+        launches[check] = [r[check]["launches"] for r in rs]
+    launches["relight"] = [r["launches"] for r in relight]
+    return launches
+
+
 FULL_RES = (3, 576, 1024)  # the full preset's res 1024, 16:9
 PAPER_FRAMES = 51  # 3 frames at dilation 25 span 51
 PAPER_RES = (3, 432, 768)  # the paper preset's res 768, 16:9
@@ -864,6 +1147,9 @@ def main() -> int:
         with plain_attention():
             u_p, d_p = pipe.unet(x, 999, pipe.empty_text_embed), pipe.vae.decode(z)
             depth_p = pipe(input_frames=frames[:12], **fast).depth_pred
+        # the parallel phase's reference (a) in bf16: the windows of the same call with the kernels
+        pipe(input_frames=frames[:12], **fast)
+        par_refs = {"frames": frames[:12].cpu(), "bfloat16_windows": torch.cat(pipe.last_window_latents).cpu()}
     checks = {}
     for name, a, b in (("unet_chunk", u_k, u_p), ("vae_decode_chunk", d_k, d_p)):
         err = (a.float() - b.float()).abs().max().item()
@@ -872,6 +1158,8 @@ def main() -> int:
         # bf16 activations through the whole model: 5e-2 of the output scale
         if not err <= 5e-2 * scale:
             raise AssertionError(f"{name}: kernels vs plain attention max err {err} > 5e-2 * {scale}")
+    # a live tensor pins its whole cached segment, which the parallel phase's ranks need
+    del x, z, u_k, d_k, u_p, d_p
     # bf16 rounding differences pass through 2000 L1 Adam steps and a
     # random-weight decoder; no bound of their own, so this is logged only
     checks["depth_bf16_12_frames"] = depth_drift(out_g.depth_pred, depth_p)
@@ -893,12 +1181,16 @@ def main() -> int:
     )
     for name, kw in refine_cases:
         depth_k = pipe32(input_frames=frames[:12], **kw).depth_pred
+        if kw is no_solve:  # the parallel phase's reference (a) in fp32
+            par_refs.update(float32_windows=torch.cat(pipe32.last_window_latents).cpu(),
+                            float32_depth=torch.from_numpy(depth_k))
         with plain_attention():
             depth_p = pipe32(input_frames=frames[:12], **kw).depth_pred
         checks[name] = drift = dict(depth_drift(depth_k, depth_p), chunks=dict(pipe32.last_chunks))
         if not (drift["max_abs_err"] <= 1e-3 and drift["corr"] > 0.99999):
             raise AssertionError(f"{name}: fp32 depth with kernels vs plain attention: {drift}")
     log({"phase": "check", **checks})
+    del frames
 
     # ---- the paper preset: fp32, exact merge, stride-1 refinement (the
     # check phase above has run this pipeline, so no warm-up of its own)
@@ -929,7 +1221,7 @@ def main() -> int:
 
     # ---- the relight path at 720x640, full SD1.5 width
     t0 = time.perf_counter()
-    launches_r = relight_phase(torch, attn, fa, gen, smi)
+    launches_r, relight_ref = relight_phase(torch, attn, fa, gen, smi)
     log({"phase": "relight_seconds", "seconds": time.perf_counter() - t0})
 
     # ---- the training path at full SD2 width, fp32, 480x640
@@ -941,6 +1233,13 @@ def main() -> int:
         del setup, data, train_step
     log({"phase": "train_seconds", "seconds": time.perf_counter() - t0})
 
+    # ---- the sharded paths: ranks of a (dp, tp) mesh on this card, over gloo
+    _free_card(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_par = parallel_phase(torch, smi, {"depth": par_refs, "relight": relight_ref}, tmp)
+    log({"phase": "parallel_seconds", "seconds": time.perf_counter() - t0})
+
     replaces = {
         "nomax": "rollingdepth_tpu/ops/flash_attention.py:103",
         "max": "rollingdepth_tpu/ops/flash_attention.py:44",
@@ -948,12 +1247,17 @@ def main() -> int:
     }
     counted = {"nomax": launches["flash_attention_nomax"], "max": launches_g["flash_attention_max"],
                "wide": launches["flash_attention_wide"]}
+    # the parallel phase's launches per rank: (a) bf16 on the (2, 2) mesh, (c) relight on (2, 1)
+    par = lambda check, name: [r[f"flash_attention_{name}"] for r in launches_par[check]]  # noqa: E731
     by_phase = {name: {"main": launches[f"flash_attention_{name}"], "gate_closed": launches_g[f"flash_attention_{name}"],
-                       "full": launches_f[f"flash_attention_{name}"], "relight": launches_r[f"flash_attention_{name}"]}
+                       "full": launches_f[f"flash_attention_{name}"], "relight": launches_r[f"flash_attention_{name}"],
+                       "parallel_ranks": par("bfloat16", name), "parallel_relight_ranks": par("relight", name)}
                 for name in ("nomax", "max", "wide")}
-    relight_rows = {name: [{k: r[k] for k in ("shape", "L_k", "max_abs_err", "ms", "plain_ms", "library_ms",
-                                              "bound_ms", "bound_by")}
-                           for r in rows["relight"] if r["name"] == name] for name in ("nomax", "max", "wide")}
+    row_keys = ("shape", "L_k", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    relight_rows = {name: [{k: r[k] for k in row_keys} for r in rows["relight"] if r["name"] == name]
+                    for name in ("nomax", "max", "wide")}
+    tp_rows = {dtype: [{k: r[k] for k in row_keys} for r in rows["tp"] if r["dtype"] == dtype]
+               for dtype in ("bfloat16", "float32")}
     flash_src, conv_src = "rollingdepth_torch/csrc/flash_attn.cu", "rollingdepth_torch/csrc/conv3x3.cu"
 
     def entry(name, tpu, source, replaces_at, launched, r, on_main_path, **extra):
@@ -965,14 +1269,17 @@ def main() -> int:
                 "library_ms": r["library_ms"], "shape": r["shape"], **extra}
 
     kernels = [entry(f"flash_attention_{name}", tpu, flash_src, replaces[name], counted[name], rows[name], True,
-                     launches_by_phase=by_phase[name], relight_shapes=relight_rows[name])
+                     launches_by_phase=by_phase[name], relight_shapes=relight_rows[name],
+                     **({"tp_shapes": tp_rows["bfloat16"]} if name == "nomax" else {}))
                for tpu, name in (("K1", "nomax"), ("K2", "max"), ("K3", "wide"))]
     # the fp32 instantiations (3xTF32 wgmma after a split pre-pass), the paper path's;
     # bound_ms is the 3xTF32 bound
     kernels += [entry(f"flash_attention_{name}_fp32", tpu, flash_src, replaces[name],
                       launches_p[f"flash_attention_{name}"], rows[f"{name}_fp32"], True, design="3xtf32 tma+wgmma",
                       dtype="float32", launches_by_phase={"paper": launches_p[f"flash_attention_{name}"],
-                                                          "train": launches_t[f"flash_attention_{name}"]})
+                                                          "train": launches_t[f"flash_attention_{name}"],
+                                                          "parallel_ranks": par("float32", name)},
+                      **({"tp_shapes": tp_rows["float32"]} if name == "nomax" else {}))
                 for tpu, name in (("K1", "nomax"), ("K3", "wide"))]
     kernels += [entry(name, tpu, conv_src, f"rollingdepth_tpu/ops/conv3x3.py:{line}", conv_launches[name],
                       conv_rows[name], False)

@@ -11,11 +11,15 @@ presets and overrides (``utils/presets.py``) and the same outputs per clip:
 harness (``eval.py``) instead; ``-fi``/``-bi`` relight each fg clip over
 each bg clip (``pipelines/rollingimg.py``) into ``<fg>_rgb.mp4``, or
 ``<fg>_<bg>_rgb.mp4`` when there are several backgrounds.  Where it differs:
-- ``--device`` (default ``cuda``) picks the torch device; without a card
-  the default raises, and ``--device cpu`` runs on the CPU;
+- ``--device`` (default this rank's card, ``parallel.multihost.local_device``)
+  picks the torch device; without a card the default raises, and
+  ``--device cpu`` runs on the CPU;
 - the batch defaults are the presets' (``max_vae_bs`` 4, ``snippet_batch``
   8), with no per-backend tuning, and there is no compile cache;
-- one process takes every clip;
+- launched by ``torchrun --nproc-per-node N -m rollingdepth_torch.cli ...``,
+  each rank takes every N-th clip (``parallel.multihost.shard_work``, as the
+  JAX CLI splits clips over hosts) on its own card, with no collective; a
+  single process takes every clip;
 - ``--quantize`` raises NotImplementedError.
 Reading video needs OpenCV or the native decoder (``io/video.py``), and the
 colour maps need matplotlib.
@@ -60,8 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--start-frame", "--from", type=int, default=0, dest="start_frame")
     parser.add_argument("--frame-count", "--frames", type=int, default=0, dest="frame_count")
     parser.add_argument("-c", "--checkpoint", type=str, default="prs-eth/rollingdepth-v1-0")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default: cuda; cpu runs on the host).")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: this rank's card, cuda:LOCAL_RANK; cpu runs on the host).")
     parser.add_argument("--res", "--processing-resolution", type=int, default=None, dest="res")
     parser.add_argument("--max-vae-bs", type=int, default=None, help="VAE encode/decode batch (default: 4).")
     parser.add_argument("--fps", "--output-fps", type=int, default=0, dest="output_fps")
@@ -128,7 +132,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def resolve_args(argv=None):
     """(parsed flags, settings): the preset with the flags given explicitly laid over it."""
+    from .parallel.multihost import local_device
+
     input_args = build_parser().parse_args(argv)
+    if input_args.device is None:
+        input_args.device = str(local_device())
     overrides = {k: v for k, v in vars(input_args).items() if k in OVERRIDES and v is not None}
     return input_args, resolve_preset(input_args.preset, overrides)
 
@@ -145,11 +153,13 @@ def _load(args, settings):
 
 def run_depth(args, settings) -> None:
     from .io.video import enumerate_videos, load_video_frames
+    from .parallel.multihost import shard_work
 
     pipe = _load(args, settings)
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    videos = enumerate_videos(args.input_video)
+    # torchrun ranks split the clip list round-robin; identity in one process
+    videos = shard_work(enumerate_videos(args.input_video))
 
     merge_in_latent = settings.merge_in_latent
     if merge_in_latent and args.save_snippets:
@@ -282,6 +292,7 @@ def run_relight(args, settings) -> None:
     uint8 video at the working 720x640, 30 fps unless ``--fps``."""
     from .io.pretrained_relight import load_relight_pipeline
     from .io.video import enumerate_videos, write_video_from_numpy
+    from .parallel.multihost import shard_work
     from .pipelines import rollingimg as ri
 
     logging.info("Loading relight checkpoint from %s", args.checkpoint)
@@ -289,7 +300,7 @@ def run_relight(args, settings) -> None:
                                  quantize=args.quantize, device=args.device)
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    fg_videos = enumerate_videos(args.input_fg_video)
+    fg_videos = shard_work(enumerate_videos(args.input_fg_video))
     bg_videos = enumerate_videos(args.input_bg_video)
     prompts = {k: getattr(args, k) for k in ("prompt", "a_prompt", "n_prompt") if getattr(args, k) is not None}
     # --frame-count 0 means unset: the pipeline's own 253-frame cap holds
@@ -315,8 +326,12 @@ def run_relight(args, settings) -> None:
 
 
 def main(argv=None) -> None:
+    from .parallel.multihost import initialize_distributed
+
     logging.basicConfig(level=logging.INFO)
     args, settings = resolve_args(argv)
+    # under torchrun: join the group (gloo for --device cpu or ranks sharing a card)
+    initialize_distributed(device=args.device)
     logging.info("arguments: %s", settings)
     if args.attn_backend and args.attn_backend != "auto":
         # read by ops.attention.dot_product_attention on every call

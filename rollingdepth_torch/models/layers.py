@@ -8,6 +8,9 @@ boundary.  Norms keep the JAX package's precision:
   inputs normalise in bf16 (as ``layers.group_norm`` does);
 - ``layer_norm``: computed in fp32, cast back.
 Self-attention goes through ``ops.attention.dot_product_attention``.
+``Attention`` and ``FeedForward`` also run as Megatron tp shards
+(``parallel/sharding.py`` ``shard_unet_`` sets their ``tp_group``); with
+no group they make no collective and no extra copy.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..parallel.sharding import copy_to_tp, reduce_from_tp
 
 
 def group_norm(norm: nn.GroupNorm, x: torch.Tensor, eps: Optional[float] = None) -> torch.Tensor:
@@ -62,7 +66,10 @@ def timestep_embedding(
 
 class Attention(nn.Module):
     """diffusers ``Attention``: q/k/v projections, multi-head attention, out
-    projection (``to_out.0``).  The caller owns the token layout."""
+    projection (``to_out.0``).  The caller owns the token layout.  As a tp
+    shard (``tp_group`` set) it holds ``heads`` of the block's heads: q/k/v
+    column-parallel, ``to_out.0`` row-parallel, its bias added after the
+    all-reduce."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int, cross_dim: Optional[int] = None,
                  qkv_bias: bool = False, norm_groups: Optional[int] = None):
@@ -70,6 +77,7 @@ class Attention(nn.Module):
         inner = heads * dim_head
         kv_dim = cross_dim if cross_dim is not None else query_dim
         self.heads = heads
+        self.tp_group = None
         self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
         self.to_k = nn.Linear(kv_dim, inner, bias=qkv_bias)
         self.to_v = nn.Linear(kv_dim, inner, bias=qkv_bias)
@@ -78,6 +86,10 @@ class Attention(nn.Module):
             self.group_norm = nn.GroupNorm(norm_groups, query_dim, eps=1e-6)
 
     def forward(self, hidden: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        tp = self.tp_group
+        if tp is not None:
+            hidden = copy_to_tp(hidden, tp)
+            context = None if context is None else copy_to_tp(context, tp)
         ctx = hidden if context is None else context
         b, lq, _ = hidden.shape
         q = self.to_q(hidden)
@@ -90,7 +102,11 @@ class Attention(nn.Module):
             k.reshape(b, ctx.shape[1], self.heads, d),
             v.reshape(b, ctx.shape[1], self.heads, d),
         )
-        return self.to_out[0](out.reshape(b, lq, inner))
+        out = out.reshape(b, lq, inner)
+        proj = self.to_out[0]
+        if tp is None:
+            return proj(out)
+        return reduce_from_tp(F.linear(out, proj.weight), tp) + proj.bias
 
 
 class ResnetBlock2D(nn.Module):
@@ -160,12 +176,20 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
+    """GEGLU projection, then the out linear (``net.2``).  As a tp shard
+    (``tp_group`` set) the projection is column-parallel over both GEGLU
+    halves and ``net.2`` row-parallel."""
+
     def __init__(self, dim: int, inner: int):
         super().__init__()
+        self.tp_group = None
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Dropout(0.0), nn.Linear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        tp, out = self.tp_group, self.net[2]
+        if tp is None:
+            return out(self.net[0](x))
+        return reduce_from_tp(F.linear(self.net[0](copy_to_tp(x, tp)), out.weight), tp) + out.bias
 
 
 class BasicTransformerBlock(nn.Module):

@@ -60,9 +60,18 @@ def probe_unet_score_bound(
     return float(torch.stack(recorder).amax())
 
 
-def calibrate_nomax(unet, context=None, margin: float = 2.0, **kwargs) -> float:
-    """Probe the UNet and set the global max-free gate; returns the bound."""
+def calibrate_nomax(unet, context=None, margin: float = 2.0, group=None, **kwargs) -> float:
+    """Probe the UNet and set the global max-free gate; returns the bound.
+    With a process ``group`` the bound is the max over its ranks, so every
+    rank takes the same kernel (a rank on K2 beside one on K1 would part
+    their results); probe the whole UNet, before ``shard_unet_``."""
     bound = probe_unet_score_bound(unet, context=context, **kwargs)
+    if group is not None:
+        import torch.distributed as dist
+
+        t = torch.tensor([bound], dtype=torch.float32, device=next(unet.parameters()).device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        bound = float(t.item())
     ok = bound * margin < NOMAX_SCORE_LIMIT
     set_nomax_allowed(ok)
     if ok:

@@ -20,6 +20,16 @@ Counterpart of ``rollingdepth_tpu/pipelines/rollingdepth.py``
    frame; decode.
 Work items are independent, so the last chunk of each loop runs at its
 true size.
+
+With a ``mesh`` (``parallel/mesh.py``; the JAX package's ``mesh=``) the
+snippet windows split in blocks over ``dp``: each dp rank denoises its
+block (a block short of ceil(S / dp) rows repeats its last window) and
+the windows' latents are all-gathered once, the padding dropped; the
+depth-space merge decodes every window the same way, and each refine step
+runs its block of the step's windows into its own sum, all-reduced over
+dp before the average.  The encode, the solves and the final decode run
+on every rank.  A UNet sharded over ``tp`` (``parallel.shard_unet_``)
+makes its own collectives; with no mesh nothing is communicated.
 """
 
 from __future__ import annotations
@@ -31,9 +41,12 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..aligner import AlignerConfig, DepthAligner
+from ..parallel.mesh import axis
+from ..parallel.sharding import gather_rows, row_block, shard_rows
 from ..utils.device import resolve_device
 from .snippets import (
     cap_max_dilation,
@@ -71,10 +84,11 @@ class RollingDepthOutput:
 
 
 class RollingDepthPipeline:
-    """UNet (snippet-native) + VAE + DDIM + aligner, on one device."""
+    """UNet (snippet-native) + VAE + DDIM + aligner, on one device, or one
+    rank of a (dp, tp) ``mesh``."""
 
     def __init__(self, unet, vae, scheduler, empty_text_embed, dtype=torch.bfloat16,
-                 snippet_batch: int = 8, device=None):
+                 snippet_batch: int = 8, device=None, mesh=None):
         self.device = resolve_device(device)
         self.dtype = dtype
         self.unet = unet.to(device=self.device, dtype=dtype).eval()
@@ -82,9 +96,12 @@ class RollingDepthPipeline:
         self.scheduler = scheduler
         self.empty_text_embed = torch.as_tensor(empty_text_embed).to(device=self.device, dtype=dtype)
         self.snippet_batch = snippet_batch
+        self.mesh = mesh
         self.last_timings: Dict[str, float] = {}
-        # chunks of the last call: every VAE encode and decode, snippet and refine UNet calls
+        # chunks of the last call (this rank's): every VAE encode and decode, snippet and refine UNet calls
         self.last_chunks: Dict[str, int] = {}
+        # the last call's denoised windows, per dilation [S, n, h, w, 4] (every window, also under dp)
+        self.last_window_latents: List[torch.Tensor] = []
 
     def __call__(
         self,
@@ -245,6 +262,8 @@ class RollingDepthPipeline:
                 lat_ls = [self._infer_snippets(rgb_latent, noise, m, st, chunks)
                           for m, st in zip(idx_ls, init_infer_steps)]
 
+        self.last_window_latents = lat_ls
+
         # ---- 4. merge
         merged_lat, snippet_ls = None, []
         if merge_in_latent:
@@ -266,7 +285,9 @@ class RollingDepthPipeline:
             # decode every window's frames (the JAX package counts this in snippet_infer)
             with self._phase("snippet_decode", timings, verbose):
                 flat = torch.cat([lat.reshape((-1,) + lat.shape[2:]) for lat in lat_ls])
-                depth_flat = self._decode(flat.to(dtype), max_vae_bs, chunks).float()  # [sum S*n, H, W]
+                mine = shard_rows(flat, self.mesh, pad=True)  # this dp rank's frames
+                depth_flat = gather_rows(self._decode(mine.to(dtype), max_vae_bs, chunks), self.mesh,
+                                         flat.shape[0]).float()  # [sum S*n, H, W]
                 group_ls = [g.reshape(m.shape[0], m.shape[1], 1, *depth_flat.shape[1:])
                             for g, m in zip(torch.split(depth_flat, [m.size for m in idx_ls]), idx_ls)]
             timings["snippet_infer"] += timings["snippet_decode"]
@@ -318,7 +339,11 @@ class RollingDepthPipeline:
     def _infer_snippets(self, rgb_latent, noise, index_matrix: np.ndarray, infer_steps: int,
                         chunks: Dict[str, int]) -> torch.Tensor:
         """Gather windows [S, n, h, w, 4] from the frame latents and denoise
-        them ``snippet_batch`` at a time; returns the windows' latents."""
+        them ``snippet_batch`` at a time; returns the windows' latents.  With
+        a mesh this dp rank denoises its block of the windows and the blocks
+        are all-gathered."""
+        s_all = index_matrix.shape[0]
+        index_matrix = shard_rows(index_matrix, self.mesh, pad=True)
         s = index_matrix.shape[0]
         sb = self.snippet_batch
         timesteps = [int(t) for t in self.scheduler.timesteps(infer_steps)]
@@ -332,7 +357,7 @@ class RollingDepthPipeline:
                 depth_lat = self.scheduler.step(eps.float(), t, depth_lat.float(), infer_steps)[0].to(self.dtype)
             outs.append(depth_lat)
         chunks["unet"] = chunks.get("unet", 0) + -(-s // sb) * len(timesteps)
-        return torch.cat(outs)
+        return gather_rows(torch.cat(outs), self.mesh, s_all)
 
     def _refine(self, rgb_latent, depth_latent, noise, refine_step: int, snippet_len: int, start_dilation: int,
                 partition: bool, chunks: Dict[str, int], skip_t_ratio: float = 0.5) -> torch.Tensor:
@@ -343,12 +368,14 @@ class RollingDepthPipeline:
         1) and average each frame over its windows.  ``partition`` takes a
         phase-rotated partition of the frames (~N/n windows a step) instead
         of the stride-1 windows (~N a step).  A frame no window covers keeps
-        its latent."""
+        its latent.  With a mesh this dp rank runs its block of each step's
+        windows and the sums are all-reduced over dp."""
         seq_len = rgb_latent.shape[0]
         total_steps = int(refine_step / skip_t_ratio)
         all_ts = self.scheduler.timesteps(total_steps)
         timesteps = [int(t) for t in all_ts[int(len(all_ts) * skip_t_ratio):]]
         n_steps, sb, dev = len(timesteps), self.snippet_batch, rgb_latent.device
+        dp, _, dp_group = axis(self.mesh, "dp")
         depth = self.scheduler.add_noise(depth_latent.float(), noise.float().expand(depth_latent.shape),
                                          timesteps[0]).to(self.dtype)
         for i_step, t in enumerate(timesteps):
@@ -357,7 +384,8 @@ class RollingDepthPipeline:
                 m = partition_index_matrix(seq_len, snippet_len, gap + 1, phase=i_step)
             else:
                 m = snippet_index_matrix(seq_len, snippet_len, gap + 1)
-            idx = torch.as_tensor(m, device=dev, dtype=torch.long)
+            start, stop = row_block(m.shape[0], self.mesh)
+            idx = torch.as_tensor(m[start:stop], device=dev, dtype=torch.long)
             acc = torch.zeros(depth.shape, device=dev, dtype=torch.float32)
             for c in range(0, idx.shape[0], sb):
                 ic = idx[c : c + sb]
@@ -365,6 +393,8 @@ class RollingDepthPipeline:
                 eps = self.unet(torch.cat([rgb_latent[ic], src], dim=-1), t, self.empty_text_embed)
                 prev = self.scheduler.step(eps.float(), t, src.float(), total_steps)[0]
                 acc.index_add_(0, ic.reshape(-1), prev.reshape((-1,) + prev.shape[2:]))
+            if dp > 1:
+                dist.all_reduce(acc, group=dp_group)
             chunks["refine_unet"] = chunks.get("refine_unet", 0) + -(-idx.shape[0] // sb)
             cnt = torch.as_tensor(coverage_count(m, seq_len), device=dev, dtype=torch.float32)[:, None, None, None]
             depth = torch.where(cnt > 0, acc / cnt.clamp(min=1.0), depth.float()).to(self.dtype)

@@ -31,6 +31,13 @@ key, so results do not depend on ``snippet_batch``; tests pass a provider
 that computes JAX's own draws.  Latents are NHWC (``[..., h, w, 4]``), as
 in the JAX package, so the draws need no transpose.
 
+With a ``mesh`` (``parallel/mesh.py``) the windows split in blocks over
+``dp``: each dp rank runs the SDE denoise and the decode of its block (a
+block short of ceil(S / dp) windows repeats its last window, id and all),
+and the decoded windows are all-gathered, the padding dropped.  Draws are
+keyed by window id, so the split cannot change one.  The t2i init and the
+three solves run on every rank.
+
 No counterpart for the JAX module's XLA machinery (row buckets and blocks,
 ``max_trips_per_dispatch``, the compile caches, ``decode_in_program``):
 work items are independent and the last chunk runs at its true size.
@@ -50,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..aligner import AlignerConfig, DepthAligner
+from ..parallel.sharding import gather_rows, shard_rows
 from ..schedulers.dpmsolver import DPMState
 from ..utils.device import resolve_device
 from .snippets import cap_max_dilation, chain_stride_index_matrix, partition_index_matrix, snippet_index_matrix
@@ -260,12 +268,12 @@ def run_rmbg_sequence(rmbg, frames: np.ndarray, sigma: float = 0.0, chunk: int =
 
 class RollingImgPipeline:
     """12-channel IC-Light UNet + base UNet + VAE + DPM++ SDE + text encoder
-    (+ RMBG), on one device."""
+    (+ RMBG), on one device, or one rank of a (dp, tp) ``mesh``."""
 
     rgb_latent_scale_factor = 0.18215
 
     def __init__(self, unet, vae, scheduler, tokenizer, text_apply, base_unet=None, rmbg=None,
-                 dtype=torch.bfloat16, snippet_batch: int = 4, device=None):
+                 dtype=torch.bfloat16, snippet_batch: int = 4, device=None, mesh=None):
         """``text_apply``: ids [B, L] (a CPU LongTensor) -> embeddings
         [B, L, D]; ``base_unet``: the 4-channel UNet before the merge, for
         the t2i init; ``rmbg``: the matting net, run in fp32."""
@@ -279,8 +287,9 @@ class RollingImgPipeline:
         self.tokenizer = tokenizer
         self.text_apply = text_apply
         self.snippet_batch = snippet_batch
+        self.mesh = mesh
         self.last_timings: Dict[str, float] = {}
-        # chunks of the last call: VAE encodes and decodes, t2i and window UNet calls
+        # chunks of the last call (this rank's): VAE encodes and decodes, t2i and window UNet calls
         self.last_chunks: Dict[str, int] = {}
 
     def __call__(
@@ -552,7 +561,12 @@ class RollingImgPipeline:
                         num_inference_steps: int, cond_first: bool, chunks: Dict[str, int]) -> torch.Tensor:
         """Windows [S, n] of the frame latents: the SDE denoise from
         ``begin_index``, ``snippet_batch`` windows at a time, then every
-        window frame decoded.  Returns [S, n, 3, H, W] in the pipeline dtype."""
+        window frame decoded.  Returns [S, n, 3, H, W] in the pipeline dtype.
+        With a mesh this dp rank runs its block of the windows and the
+        decoded blocks are all-gathered."""
+        s_all = index_matrix.shape[0]
+        index_matrix = shard_rows(index_matrix, self.mesh, pad=True)
+        snippet_ids = shard_rows(snippet_ids, self.mesh, pad=True)
         s, n = index_matrix.shape
         sb, dtype = self.snippet_batch, self.dtype
         idx = torch.as_tensor(index_matrix, device=cond_latent.device, dtype=torch.long)
@@ -572,4 +586,5 @@ class RollingImgPipeline:
         chunks["unet"] = chunks.get("unet", 0) + -(-s // sb) * len(timesteps)
         lat = torch.cat(lats)
         img = self._decode(lat.reshape((s * n,) + lat.shape[2:]), vae_bs, chunks)  # [S*n, H, W, 3]
-        return img.reshape((s, n) + img.shape[1:]).permute(0, 1, 4, 2, 3).contiguous()
+        img = img.reshape((s, n) + img.shape[1:]).permute(0, 1, 4, 2, 3).contiguous()
+        return gather_rows(img, self.mesh, s_all)

@@ -10,6 +10,9 @@ from a seeded ``torch.Generator`` on the device:
   RMBG U²-Net) with a byte-level tokenizer in place of CLIP's BPE files;
 - training: the depth model's UNet, VAE, scheduler and empty-prompt
   embedding in fp32, with synthetic rgb and depth clips.
+With a (dp, tp) ``mesh`` every rank builds the same full weights (same
+seed, same device type), probes the whole UNet's scores (the bound is the
+max over the ranks) and then keeps its tp shard (``parallel.shard_unet_``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import dataclasses
 from typing import List, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..io.pretrained_relight import RELIGHT_SCHEDULER_CONFIG
 from ..io.tokenizer import CLIPTokenizer, bytes_to_unicode
@@ -28,6 +32,7 @@ from ..models.rmbg import BriaRMBG
 from ..models.unet import UNet2DConditionModel, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..ops.score_probe import calibrate_nomax
+from ..parallel.sharding import shard_unet_
 from ..pipelines.rollingdepth import RollingDepthPipeline
 from ..pipelines.rollingimg import RollingImgPipeline
 from ..schedulers.ddim import DDIMConfig, DDIMScheduler
@@ -61,8 +66,13 @@ DEPTH_SCHEDULER = DDIMConfig(beta_schedule="scaled_linear", timestep_spacing="tr
                              prediction_type="v_prediction", steps_offset=1)
 
 
+def _calibrate(unet, mesh) -> float:
+    """The max-free gate on the whole UNet, agreed over every rank of a mesh."""
+    return calibrate_nomax(unet, group=None if mesh is None else dist.group.WORLD)
+
+
 @torch.no_grad()
-def random_depth_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snippet_batch: int = 8):
+def random_depth_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snippet_batch: int = 8, mesh=None):
     """Returns (pipeline, score-probe bound).  The max-free gate is
     calibrated on the random UNet, as the loader does on real weights."""
     dev = resolve_device(device)
@@ -70,10 +80,10 @@ def random_depth_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snip
     unet = init_random_(UNet2DConditionModel(UNetConfig.sd21(), device=dev), gen).to(dtype).eval()
     vae = init_random_(AutoencoderKL(VAEConfig(), device=dev), gen).to(dtype).eval()
     text = init_random_(CLIPTextModel(CLIPTextConfig(), device=dev), gen).eval()
-    bound = calibrate_nomax(unet)
+    bound = _calibrate(unet, mesh)
     empty = text(torch.tensor([EMPTY_PROMPT_IDS], device=dev))
-    pipe = RollingDepthPipeline(unet, vae, DDIMScheduler(DEPTH_SCHEDULER), empty, dtype=dtype,
-                                snippet_batch=snippet_batch, device=dev)
+    pipe = RollingDepthPipeline(shard_unet_(unet, mesh), vae, DDIMScheduler(DEPTH_SCHEDULER), empty, dtype=dtype,
+                                snippet_batch=snippet_batch, device=dev, mesh=mesh)
     return pipe, bound
 
 
@@ -90,7 +100,7 @@ class TrainingSetup:
 
 @torch.no_grad()
 def random_training_setup(device=None, seed: int = 0, clips: int = 2, frames: int = 8,
-                          res: Tuple[int, int] = (480, 640)) -> TrainingSetup:
+                          res: Tuple[int, int] = (480, 640), mesh=None) -> TrainingSetup:
     """rollingdepth-v1-0 at full width with seeded random weights, in fp32
     as a trainer holds it: the SD2 UNet (8 input channels), the SD VAE, the
     empty-prompt embedding of the OpenCLIP ViT-H text tower (the tower is
@@ -104,7 +114,8 @@ def random_training_setup(device=None, seed: int = 0, clips: int = 2, frames: in
     text = init_random_(CLIPTextModel(CLIPTextConfig(), device=dev), gen).eval()
     empty = text(torch.tensor([EMPTY_PROMPT_IDS], device=dev))
     del text
-    bound = calibrate_nomax(unet)
+    bound = _calibrate(unet, mesh)
+    shard_unet_(unet, mesh)
     h, w = res
     rgb = [torch.rand((frames, 3, h, w), generator=gen, device=dev) * 2 - 1 for _ in range(clips)]
     depth = [torch.rand((frames, 1, h, w), generator=gen, device=dev) * 2 - 1 for _ in range(clips)]
@@ -135,7 +146,7 @@ def byte_tokenizer() -> CLIPTokenizer:
 
 
 @torch.no_grad()
-def random_relight_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snippet_batch: int = 8):
+def random_relight_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snippet_batch: int = 8, mesh=None):
     """Returns (RollingImgPipeline, score-probe bound).  The merged UNet is
     the base's state dict through the loader's transforms (conv_in padded
     to 12 channels, a random offset on conv_in so that the condition
@@ -153,12 +164,14 @@ def random_relight_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, sn
     vae = init_random_(AutoencoderKL(VAEConfig(), device=dev), gen).to(dtype).eval()
     text = init_random_(CLIPTextModel(CLIP_VIT_L, device=dev), gen).eval()
     rmbg = init_random_(BriaRMBG(device=dev), gen).eval()
-    bound = calibrate_nomax(unet)
+    bound = _calibrate(unet, mesh)
+    shard_unet_(unet, mesh)
+    shard_unet_(base, mesh)
 
     def text_apply(ids: torch.Tensor) -> torch.Tensor:
         return text(ids.to(dev))
 
     pipe = RollingImgPipeline(unet, vae, DPMSolverMultistepScheduler(RELIGHT_SCHEDULER_CONFIG), byte_tokenizer(),
                               text_apply, base_unet=base, rmbg=rmbg, dtype=dtype, snippet_batch=snippet_batch,
-                              device=dev)
+                              device=dev, mesh=mesh)
     return pipe, bound

@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 
 import rollingdepth_torch.io.tokenizer as t_tok
+import rollingdepth_torch.parallel.mesh as t_mesh
 import rollingdepth_torch.pipelines.snippets as t_snip
 import rollingdepth_torch.schedulers.common as t_common
 import rollingdepth_torch.utils.presets as t_presets
 import rollingdepth_tpu.io.tokenizer as j_tok
+import rollingdepth_tpu.parallel.mesh as j_mesh
 import rollingdepth_tpu.pipelines.snippets as j_snip
 import rollingdepth_tpu.schedulers.common as j_common
 import rollingdepth_tpu.utils.presets as j_presets
@@ -46,6 +48,12 @@ def test_snippets(seq_len):
     m = j_snip.snippet_index_matrix(seq_len, 2, 1)
     _same(j_snip.coverage_count, t_snip.coverage_count, m, seq_len)
     _same(j_snip.valid_window_mask, t_snip.valid_window_mask, 3, seq_len + 3)
+
+
+@pytest.mark.parametrize("max_tp", [1, 2, 4, 8])
+def test_best_mesh_shape(max_tp):
+    for n in range(1, 65):
+        assert t_mesh.best_mesh_shape(n, max_tp) == j_mesh.best_mesh_shape(n, max_tp), n
 
 
 @pytest.mark.parametrize("schedule", ["linear", "scaled_linear", "squaredcos_cap_v2"])

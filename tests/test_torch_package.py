@@ -9,7 +9,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "optax", "rollingdepth_tpu", "safetensors", "cv2", "matplotlib")
 LAZY_ONLY = ("cv2", "matplotlib")  # absent on the card's machine: imported inside the functions that need them
-PORT_FILES = sorted((ROOT / "rollingdepth_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the rank bodies of test_torch_parallel.py run in spawned ranks, where JAX must not load either
+PORT_FILES = sorted((ROOT / "rollingdepth_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                    ROOT / "tests" / "torch_parallel_ranks.py"]
 
 
 def _imports(path):
@@ -42,7 +44,8 @@ def test_port_imports_no_jax(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"flash_attention.py", "attention.py", "unet.py", "rollingdepth.py", "chip_smoke.py", "cli.py", "video.py",
-            "native_video.py", "colorize.py", "eval.py", "training.py", "training_data.py"} <= names
+            "native_video.py", "colorize.py", "eval.py", "training.py", "training_data.py", "mesh.py", "sharding.py",
+            "multihost.py", "launch.py", "multihost_demo.py", "torch_parallel_ranks.py"} <= names
 
 
 def _no_card():
