@@ -30,6 +30,16 @@ Phases, each of which must pass or the script exits non-zero:
            60-frame 432x768 clip at full SD2 width with seeded random
            weights: a warm-up call, then a timed call whose kernel launch
            counts must equal what the chunking implies;
+   w8a8    the W8A8 serving mode (``ops/quant.py``): (a) the int8 GEMM
+           (``torch._int_mm``) and the im2col int8 conv at an SD2 shape
+           each, bit for bit against the exact product of the same int8
+           operands on the CPU; (b) the same fast call with the UNet
+           quantized: one UNet chunk within JAX's quantized-UNet bounds of
+           the bf16 UNet (correlation > 0.99, rms < 0.1 of the spread), the
+           K1/K3 launches equal to the bf16 call's, the depth finite and
+           within JAX's pipeline bound of the bf16 call's (correlation >
+           0.95), its time and fps beside the bf16 call's; (c) ``tools/bench_int8.py``'s slim
+           set (bf16 against int8, with bounds);
 4. gate    the same pipeline on a 12-frame clip with the max-free gate
            closed, so that narrow heads take the running-max kernel;
 5. full    the full preset (res 1024, dilations [1, 10, 25], latent merge,
@@ -78,7 +88,11 @@ Phases, each of which must pass or the script exits non-zero:
            chunks at its local heads, then one fp32 train step at 256x320
            (loss rtol 1e-5, grad_norm rtol 1e-4, parameters within
            ``PAR_PARAMS_TOL``, which a skipped update on one shard exceeds);
-           2 ranks at (2, 1) run the relight call on 6 frames (2e-2).
+           2 ranks at (2, 1) run the relight call on 6 frames (2e-2);
+           first, the 4 ranks run one W8A8 UNet chunk (2 windows a dp rank),
+           bit for bit against one process (the int32 sums are exact), and
+           the same chunk with each row-parallel shard's activation scale
+           from its own shard (no abs-max all-reduce), which must differ.
 In main, full, paper, relight and train the kernel launch counts must
 equal what the chunk and step counts imply (``attention_kernel_launches``,
 ``relight_kernel_launches``, ``train_kernel_launches``); the depth must be
@@ -132,9 +146,14 @@ def plain_attention():
 
 
 def depth_drift(a, b) -> dict:
+    """Mean and max |a - b|, their correlation, and the rms of a - b over b's
+    spread (with the correlation, JAX's drift measure for a quantized UNet);
+    numpy arrays or tensors."""
+    a, b = (np.asarray(x.float().cpu() if hasattr(x, "cpu") else x, np.float64) for x in (a, b))
     d = np.abs(a - b)
     return {"mean_abs_err": float(d.mean()), "max_abs_err": float(d.max()),
-            "corr": float(np.corrcoef(a.ravel(), b.ravel())[0, 1])}
+            "corr": float(np.corrcoef(a.ravel(), b.ravel())[0, 1]),
+            "rel_rms": float(np.sqrt((d * d).mean()) / b.std()), "finite": bool(np.isfinite(a).all())}
 
 
 def kernel_calls(attn, cfg, n: int, h: int, w: int, tp: int = 1) -> list:
@@ -774,6 +793,105 @@ def train_check_phase(torch, attn, fa, setup, data, step, smi, ckpt: str) -> Non
     log({"phase": "train_check", **checks, "function_grads": grads, "card": smi})
 
 
+# ---- the W8A8 serving mode (ops/quant.py): int8 products, the fast preset, the int8 probe
+
+W8A8_DRIFT = {"corr": 0.99, "rel_rms": 0.1}  # JAX's bounds for a quantized UNet (tests/test_quant.py)
+W8A8_DEPTH_CORR = 0.95  # JAX's bound for the W8A8 pipeline's depth against the float one's
+W8A8_TP_WINDOWS = 4  # the (2, 2) mesh's W8A8 UNet chunk: 2 windows a dp rank
+
+
+def w8a8_phase(torch, attn, fa, pipe, frames, ref_out, ref_s, ref_launches, smi) -> dict:
+    """(a) The int8 GEMM and convolution of ``ops/quant.py`` on the card, at
+    an SD2 shape each (one window of the level-0 GEGLU projection; the
+    level-0 3x3 conv on one window), bit for bit against the exact product
+    of the same int8 operands on the CPU (float64, exact at these sums).
+    (b) The fast preset with the UNet quantized (a copy of ``pipe``'s): one
+    UNet chunk against the bf16 UNet within JAX's drift bounds, the depth's
+    drift against ``ref_out`` (same frames, same noise) logged, the K1/K3
+    launches equal to the bf16 call's, its time beside ``ref_s``.  (c) The
+    int8 probe's slim set (``tools/bench_int8.py``).  Returns the parallel
+    phase's W8A8 reference: the quantized UNet on each dp block of a chunk."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from rollingdepth_torch.ops.quant import int8_conv_chunks, int8_matmul, quantize_unet_
+    from rollingdepth_torch.pipelines.rollingdepth import RollingDepthPipeline
+    from rollingdepth_torch.tools import bench_int8
+    from rollingdepth_torch.utils.synthetic import FAST_PRESET
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def int8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    # (a)
+    a, w = int8((3 * 54 * 96, 320)), int8((2 * 1280, 320))
+    got = int8_matmul(a, w)
+    torch.cuda.synchronize()
+    exact = (a.cpu().double() @ w.cpu().double().t()).long()
+    x, k = int8((3, 54, 96, 320)), int8((320, 320, 3, 3))
+    got_c = torch.cat([acc for _, acc in int8_conv_chunks(x, k, 1, 1)])
+    exact_c = F.conv2d(x.cpu().double().permute(0, 3, 1, 2), k.cpu().double(), padding=1).permute(0, 2, 3, 1).long()
+    products = {"gemm": {"shape": [a.shape[0], a.shape[1], w.shape[0]], "dtype": str(got.dtype),
+                         "bit_equal": bool(torch.equal(got.cpu().long(), exact))},
+                "conv": {"shape": list(x.shape) + [k.shape[0]], "dtype": str(got_c.dtype),
+                         "bit_equal": bool(torch.equal(got_c.cpu().long(), exact_c))}}
+    if not all(v["bit_equal"] and v["dtype"] == "torch.int32" for v in products.values()):
+        raise AssertionError(f"w8a8: int8 products on the card differ from the exact product: {products}")
+    del a, w, got, x, k, got_c
+
+    # (b)
+    t0 = time.perf_counter()
+    qunet = quantize_unet_(copy.deepcopy(pipe.unet))
+    qpipe = RollingDepthPipeline(qunet, pipe.vae, pipe.scheduler, pipe.empty_text_embed, dtype=pipe.dtype,
+                                 snippet_batch=pipe.snippet_batch, device="cuda")
+    setup_s = time.perf_counter() - t0
+    with torch.no_grad():
+        xu = torch.randn((8, 3, 54, 96, 8), generator=gen, device="cuda").to(pipe.dtype)
+        chunk = depth_drift(qunet(xu, 999, pipe.empty_text_embed), pipe.unet(xu, 999, pipe.empty_text_embed))
+        half = W8A8_TP_WINDOWS // PARALLEL_MESH[0]
+        par_ref = {"w8a8_x": xu[:W8A8_TP_WINDOWS].cpu(), "empty_text_embed": pipe.empty_text_embed.cpu(),
+                   "w8a8_unet": torch.cat([qunet(xu[i : i + half], 999, pipe.empty_text_embed)
+                                           for i in range(0, W8A8_TP_WINDOWS, half)]).cpu()}
+    if not (chunk["finite"] and chunk["corr"] > W8A8_DRIFT["corr"] and chunk["rel_rms"] < W8A8_DRIFT["rel_rms"]):
+        raise AssertionError(f"w8a8: quantized UNet chunk drifts beyond {W8A8_DRIFT}: {chunk}")
+    t0 = time.perf_counter()
+    qpipe(input_frames=frames[:12], **FAST_PRESET)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_q = qpipe(input_frames=frames, verbose=True, **FAST_PRESET)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    chunks = dict(qpipe.last_chunks)
+    check_depth("w8a8", out_q, ref_out.depth_pred.shape)
+    lat_hw = (frames.shape[2] // 8, frames.shape[3] // 8)
+    want = attention_kernel_launches(attn, qpipe, chunks, lat_hw, 3, 3, "flash_attention_nomax")
+    if launches != want or launches != ref_launches:
+        raise AssertionError(f"w8a8: launches {launches} != {want} implied by chunks {chunks}, "
+                             f"or != the bf16 call's {ref_launches}")
+    depth = depth_drift(out_q.depth_pred, ref_out.depth_pred)
+    if not (depth["finite"] and depth["corr"] > W8A8_DEPTH_CORR):
+        raise AssertionError(f"w8a8: depth {depth} against the bf16 call's, bound corr > {W8A8_DEPTH_CORR}")
+    n = frames.shape[0]
+    log({"phase": "w8a8", "products": products, "unet_chunk_vs_bf16": chunk, "bounds": W8A8_DRIFT,
+         "depth_vs_bf16": depth, "depth_corr_bound": W8A8_DEPTH_CORR, "frames": n,
+         "res": list(frames.shape[2:]), "setup_s": setup_s, "warmup_12_frames_s": warm_s, "total_s": total_s,
+         "fps": n / total_s, "bf16_total_s": ref_s, "bf16_fps": n / ref_s, "timings_s": qpipe.last_timings,
+         "chunks": chunks, "launches": launches, "card": smi})
+    del qpipe, qunet, out_q, xu
+    _free_card(torch)
+
+    # (c)
+    t0 = time.perf_counter()
+    rows = bench_int8.sweep(full=False, iters=5, verbose=False)
+    log({"phase": "w8a8_int8_probe", "rows": rows, "seconds": time.perf_counter() - t0, "card": smi})
+    return par_ref
+
+
 # ---- the parallel phase: ranks of a (dp, tp) mesh, all on the one card, over gloo
 
 PARALLEL_MESH = (2, 2)
@@ -814,17 +932,20 @@ def _max_err(torch, got, ref) -> dict:
 
 
 def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> dict:
-    """One rank of the (2, 2) mesh: (a) the fast preset at full SD2 width on
-    12 frames in bf16 and in fp32 (solves cut to 0 steps) with (b) its
-    launches, then (d) one fp32 train step; each against the single-process
-    results in ``spec_path`` and ``params_path``."""
+    """One rank of the (2, 2) mesh: (e) one W8A8 UNet chunk, (a) the fast
+    preset at full SD2 width on 12 frames in bf16 and in fp32 (solves cut to
+    0 steps) with (b) its launches, then (d) one fp32 train step; each
+    against the single-process results in ``spec_path`` and ``params_path``."""
     import torch
     import torch.distributed as dist
 
     from rollingdepth_torch.ops import attention as attn
     from rollingdepth_torch.ops import flash_attention as fa
     from rollingdepth_torch.parallel.mesh import axis, make_mesh
-    from rollingdepth_torch.parallel.sharding import shard_tensor, unet_param_sharding
+    from rollingdepth_torch.models.layers import init_random_
+    from rollingdepth_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from rollingdepth_torch.ops import quant
+    from rollingdepth_torch.parallel.sharding import shard_tensor, shard_unet_, unet_param_sharding
     from rollingdepth_torch.training import TrainConfig, make_train_step, step_seconds
     from rollingdepth_torch.utils.synthetic import FAST_PRESET, random_depth_pipeline, random_training_setup
 
@@ -835,6 +956,32 @@ def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> di
     tp, tp_rank, _ = axis(mesh, "tp")
     out = {"rank": rank, "backend": dist.get_backend(), "device": torch.cuda.current_device(),
            "dp": axis(mesh, "dp")[:2], "tp": (tp, tp_rank)}
+    # (e) one W8A8 UNet chunk: random_depth_pipeline's UNet (its first draw
+    # from the seed), quantized, then sharded; this dp rank's block of the windows
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    unet = init_random_(UNet2DConditionModel(UNetConfig.sd21(), device="cuda"), gen).to(torch.bfloat16).eval()
+    shard_unet_(quant.quantize_unet_(unet), mesh)
+    dp, dp_rank, _ = axis(mesh, "dp")
+    block = spec["w8a8_x"].chunk(dp)[dp_rank].cuda()
+    with torch.no_grad():
+        got = unet(block, 999, spec["empty_text_embed"].cuda())
+    want = spec["w8a8_unet"].chunk(dp)[dp_rank]
+    out["w8a8_unet"] = dict(depth_drift(got, want), bit_equal=bool(torch.equal(got.cpu(), want)),
+                            seconds=time.perf_counter() - t0)
+    # the planted fault the check must catch: each row-parallel shard scales
+    # its activation by its own abs-max (no MAX all-reduce over tp)
+    orig = quant.quantize_activation
+    quant.quantize_activation = lambda t, group=None: orig(t)
+    try:
+        with torch.no_grad():
+            local = unet(block, 999, spec["empty_text_embed"].cuda())
+    finally:
+        quant.quantize_activation = orig
+    out["w8a8_unet_local_absmax"] = dict(depth_drift(local, want), bit_equal=bool(torch.equal(local.cpu(), want)))
+    del unet, block, got, local
+    _free_card(torch)
+
     frames = spec["frames"].cuda()
     lat_hw = (frames.shape[2] // 8, frames.shape[3] // 8)
     no_solve = dict(FAST_PRESET, latent_coalign_kwargs={"num_iterations": 0}, coalign_kwargs={"num_iterations": 0})
@@ -987,6 +1134,11 @@ def parallel_phase(torch, smi, refs: dict, tmp: str) -> dict:
             w = res["windows"]
             if not (w["finite"] and w["max_abs_err"] <= max_rel * w["scale"]):
                 raise AssertionError(f"parallel rank {r['rank']} {name}: windows {w} beyond {max_rel} of the scale")
+        # int32 sums are exact, so the sharded chunk is one process's bit for bit
+        q, planted = r["w8a8_unet"], r["w8a8_unet_local_absmax"]
+        if not (q["finite"] and q["bit_equal"]) or planted["bit_equal"]:
+            raise AssertionError(f"parallel rank {r['rank']}: W8A8 UNet chunk {q} not bit-equal to one process, "
+                                 f"or the planted local abs-max {planted} passes")
         d = r["float32"]["depth"]
         if not (d["finite"] and d["max_abs_err"] <= 1e-3):
             raise AssertionError(f"parallel rank {r['rank']} fp32 depth {d} beyond 1e-3")
@@ -1096,6 +1248,11 @@ def main() -> int:
          "fps": n_frames / total_s, "timings_s": pipe.last_timings, "chunks": chunks, "launches": launches,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
 
+    # ---- the W8A8 serving mode on the same frames and noise
+    t0 = time.perf_counter()
+    w8a8_ref = w8a8_phase(torch, attn, fa, pipe, frames, out, total_s, launches, smi)
+    log({"phase": "w8a8_seconds", "seconds": time.perf_counter() - t0})
+
     # ---- the same path with the max-free gate closed: the running-max kernel
     attn.set_nomax_allowed(False)
     try:
@@ -1149,7 +1306,8 @@ def main() -> int:
             depth_p = pipe(input_frames=frames[:12], **fast).depth_pred
         # the parallel phase's reference (a) in bf16: the windows of the same call with the kernels
         pipe(input_frames=frames[:12], **fast)
-        par_refs = {"frames": frames[:12].cpu(), "bfloat16_windows": torch.cat(pipe.last_window_latents).cpu()}
+        par_refs = {"frames": frames[:12].cpu(), "bfloat16_windows": torch.cat(pipe.last_window_latents).cpu(),
+                    **w8a8_ref}
     checks = {}
     for name, a, b in (("unet_chunk", u_k, u_p), ("vae_decode_chunk", d_k, d_p)):
         err = (a.float() - b.float()).abs().max().item()

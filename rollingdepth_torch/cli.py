@@ -19,8 +19,9 @@ each bg clip (``pipelines/rollingimg.py``) into ``<fg>_rgb.mp4``, or
 - launched by ``torchrun --nproc-per-node N -m rollingdepth_torch.cli ...``,
   each rank takes every N-th clip (``parallel.multihost.shard_work``, as the
   JAX CLI splits clips over hosts) on its own card, with no collective; a
-  single process takes every clip;
-- ``--quantize`` raises NotImplementedError.
+  single process takes every clip.
+``--quantize w8a8`` quantizes the UNet (the relight UNet for ``-fi/-bi``)
+as the JAX CLI does (``ops/quant.py``).
 Reading video needs OpenCV or the native decoder (``io/video.py``), and the
 colour maps need matplotlib.
 """
@@ -105,7 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--quantize", type=str, default="none", choices=["none", "w8a8"],
-                        help="W8A8 UNet quantization (not ported).")
+                        help="Serving-mode weight+activation quantization of the UNet (w8a8: int8 "
+                             "weights per output channel, int8 activations per tensor; the relight "
+                             "UNet only for -fi/-bi).")
     parser.add_argument("--attn-backend", type=str, default=None, choices=["auto", "flash", "xla"],
                         dest="attn_backend",
                         help="Attention: auto (the CUDA kernels on the card), flash (always the "
@@ -144,11 +147,9 @@ def resolve_args(argv=None):
 def _load(args, settings):
     from .io.pretrained import load_rollingdepth_pipeline
 
-    if args.quantize != "none":
-        raise NotImplementedError("--quantize: W8A8 is not ported yet (ROADMAP item 17)")
     logging.info("Loading checkpoint from %s", args.checkpoint)
-    return load_rollingdepth_pipeline(args.checkpoint, dtype=settings.dtype,
-                                      snippet_batch=settings.snippet_batch, device=args.device)
+    return load_rollingdepth_pipeline(args.checkpoint, dtype=settings.dtype, snippet_batch=settings.snippet_batch,
+                                      quantize=args.quantize, device=args.device)
 
 
 def run_depth(args, settings) -> None:

@@ -5,15 +5,17 @@ A copy of ``rollingdepth_tpu/io/native_video.py``: it binds the same C++
 library, ``native/rolling_video.cc`` on libavformat/libavcodec/libswscale
 (multithreaded decode, aspect-preserving max-edge resize, [-1, 1] float or
 uint8 frames, and the codec fallback chain for encoding), built with
-``native/Makefile`` at first use.  Where the build or the load fails (no
-ffmpeg development libraries), ``available()`` is False and ``io/video.py``
-decodes with OpenCV instead.  ``PrefetchingFrameLoader`` uploads with
+``native/Makefile`` at first use, under a file lock, so that processes
+starting together never load a half-written library.  Where the build or
+the load fails (no ffmpeg development libraries), ``available()`` is False
+and ``io/video.py`` decodes with OpenCV instead.  ``PrefetchingFrameLoader`` uploads with
 ``Tensor.to(device)`` to an explicit torch device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
 import queue
@@ -32,10 +34,15 @@ _lib_tried = False
 
 
 def _build_library() -> bool:
+    """``make`` under an exclusive ``fcntl`` lock on ``native/.build.lock``:
+    processes that start together build once, and none of them loads a
+    library another is still writing."""
     try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR], check=True, capture_output=True, timeout=120
-        )
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR], check=True, capture_output=True, timeout=120
+            )
         return True
     except Exception as e:  # noqa: BLE001
         logger.debug("native video build failed: %s", e)
@@ -48,8 +55,8 @@ def load_library():
     if _lib is not None or _lib_tried:
         return _lib
     _lib_tried = True
-    if not os.path.exists(_LIB_PATH) and os.path.isdir(_NATIVE_DIR):
-        _build_library()
+    if os.path.isdir(_NATIVE_DIR):
+        _build_library()  # a no-op when the library is built; waits for a build in progress
     if not os.path.exists(_LIB_PATH):
         return None
     try:

@@ -4,7 +4,8 @@ Counterpart of ``rollingdepth_tpu/io/pretrained.py``: reads the
 ``model_index.json`` subfolders (unet, vae, scheduler, text_encoder,
 tokenizer), loads each module's diffusers state dict into the port's
 modules, calibrates the max-free attention gate on the loaded UNet when it
-runs on the card, and precomputes the empty-prompt text embedding.
+runs on the card, optionally quantizes the UNet to W8A8 (``quantize=``,
+``ops/quant.py``) and precomputes the empty-prompt text embedding.
 """
 
 from __future__ import annotations
@@ -64,16 +65,24 @@ def load_text_encoder(checkpoint_dir: str, dtype=torch.float32, device=None):
     return model
 
 
-def load_rollingdepth_pipeline(checkpoint_dir: str, dtype="fp16", snippet_batch: int = 8, device=None):
-    """Assemble the depth pipeline from a rollingdepth-v1-0-style checkpoint."""
+def load_rollingdepth_pipeline(checkpoint_dir: str, dtype="fp16", snippet_batch: int = 8, quantize=None,
+                               device=None):
+    """Assemble the depth pipeline from a rollingdepth-v1-0-style checkpoint;
+    ``quantize="w8a8"`` quantizes the UNet (``ops.quant.apply_quantize``)."""
+    from ..ops.quant import apply_quantize
     from ..ops.score_probe import calibrate_nomax
     from ..pipelines.rollingdepth import RollingDepthPipeline
 
     dev = resolve_device(device)
     tdtype = DTYPE_MAP[dtype] if isinstance(dtype, str) else dtype
     unet = load_unet(checkpoint_dir, tdtype, dev).eval()
-    if dev.type == "cuda":  # the max-free kernel runs only on the card
+    if dev.type == "cuda":
+        # the max-free kernel runs only on the card.  The JAX package skips
+        # the probe on a quantized tree; the port probes the float weights,
+        # before quantizing: W8A8 leaves q and k's projections within the
+        # int8 grid of the float ones, and attention itself stays float
         calibrate_nomax(unet)
+    unet = apply_quantize(unet, quantize)
     vae = load_vae(checkpoint_dir, tdtype, dev)
     scheduler = DDIMScheduler(DDIMConfig.from_dict(load_config(checkpoint_dir, "scheduler")))
     text_model = load_text_encoder(checkpoint_dir, torch.float32, dev).eval()

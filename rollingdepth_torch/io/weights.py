@@ -6,7 +6,8 @@ a module's weight files (single-file, sharded ``*.index.json`` and
 ``fp16``-variant safetensors, or a torch ``.bin``) and its config, and
 converts a parameter pytree of the JAX package (nested dicts and lists of
 arrays) back into a diffusers-named state dict: ``state_dict_from_jax`` is
-the inverse of ``rollingdepth_tpu.io.weights.state_dict_to_pytree``, and
+the inverse of ``rollingdepth_tpu.io.weights.state_dict_to_pytree``
+(``quant_state_dict_from_jax`` carries a W8A8 pytree's int8 kernels), and
 ``adamw_state_from_jax`` carries optax's Adam moments across to
 ``torch.optim.AdamW`` the same way.  The IC-Light transforms
 (``expand_conv_in``, ``merge_offset``) act on such state dicts at load
@@ -33,12 +34,14 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _leaf_to_torch(name: str, arr: np.ndarray):
-    """Our leaf name + array -> (diffusers leaf name, tensor layout)."""
-    if name == "kernel":
+    """Our leaf name + array -> (diffusers leaf name, tensor layout).  A
+    W8A8 ``kernel_q`` becomes ``weight_q`` in the same layout as ``weight``."""
+    if name in ("kernel", "kernel_q"):
+        out = "weight" if name == "kernel" else "weight_q"
         if arr.ndim == 4:  # conv HWIO -> OIHW
-            return "weight", np.transpose(arr, (3, 2, 0, 1))
+            return out, np.transpose(arr, (3, 2, 0, 1))
         if arr.ndim == 2:  # linear [I, O] -> [O, I]
-            return "weight", np.transpose(arr, (1, 0))
+            return out, np.transpose(arr, (1, 0))
         raise ValueError(f"kernel of rank {arr.ndim}")
     if name in ("scale", "embedding"):
         return "weight", arr
@@ -62,7 +65,8 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
             for i, v in enumerate(node):
                 walk(v, prefix + [str(i)])
         else:
-            flat[".".join(prefix)] = np.asarray(node, dtype=np.float32)
+            arr = np.asarray(node)
+            flat[".".join(prefix)] = arr if arr.dtype == np.int8 else arr.astype(np.float32)
 
     walk(params, [])
     out: StateDict = {}
@@ -81,8 +85,21 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
             path = path[:-1] + ["net", "2"]
         elif path and path[-1] == "to_out":
             path = path + ["0"]
-        out[".".join(path + [name])] = torch.from_numpy(np.array(t, dtype=np.float32, copy=True))
+        out[".".join(path + [name])] = torch.from_numpy(np.array(t, copy=True))
     return out
+
+
+def quant_state_dict_from_jax(qparams: Mapping[str, Any]) -> StateDict:
+    """A W8A8 UNet pytree of the JAX package (``quantize_unet_params``) as
+    the state dict of a port UNet after ``ops.quant.quantize_unet_``: each
+    ``kernel_q`` (``[in, out]``/HWIO int8) becomes ``weight_q`` (``[out,
+    in]``/OIHW int8), ``w_scale`` stays fp32 [out], and the GEGLU halves'
+    ``kernel_q`` and ``w_scale`` fuse into ``ff.net.0.proj`` as ``kernel``
+    does (``state_dict_from_jax``)."""
+    sd = state_dict_from_jax(qparams)
+    if not any(k.endswith(".weight_q") for k in sd):
+        raise ValueError("no kernel_q leaf: not a W8A8 pytree (use state_dict_from_jax)")
+    return sd
 
 
 def _find_adam_state(opt_state):

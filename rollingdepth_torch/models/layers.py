@@ -10,7 +10,10 @@ boundary.  Norms keep the JAX package's precision:
 Self-attention goes through ``ops.attention.dot_product_attention``.
 ``Attention`` and ``FeedForward`` also run as Megatron tp shards
 (``parallel/sharding.py`` ``shard_unet_`` sets their ``tp_group``); with
-no group they make no collective and no extra copy.
+no group they make no collective and no extra copy.  Their linears and the
+resnets' convs may be the W8A8 ``QuantLinear``/``QuantConv2d`` of
+``ops/quant.py`` (``quantize_unet_``); a quantized row-parallel shard sums
+its own int32 partials.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.quant import QuantLinear
 from ..parallel.sharding import copy_to_tp, reduce_from_tp
 
 
@@ -104,7 +108,7 @@ class Attention(nn.Module):
         )
         out = out.reshape(b, lq, inner)
         proj = self.to_out[0]
-        if tp is None:
+        if tp is None or isinstance(proj, QuantLinear):  # a W8A8 shard makes its own sum
             return proj(out)
         return reduce_from_tp(F.linear(out, proj.weight), tp) + proj.bias
 
@@ -189,6 +193,8 @@ class FeedForward(nn.Module):
         tp, out = self.tp_group, self.net[2]
         if tp is None:
             return out(self.net[0](x))
+        if isinstance(out, QuantLinear):  # a W8A8 shard makes its own sum
+            return out(self.net[0](copy_to_tp(x, tp)))
         return reduce_from_tp(F.linear(self.net[0](copy_to_tp(x, tp)), out.weight), tp) + out.bias
 
 

@@ -23,6 +23,13 @@ column-parallel halves (``proj_h``, ``proj_gate``): rank r takes rows
 r * inner / tp ... (r + 1) * inner / tp of BOTH halves, so ``GEGLU``'s
 ``chunk(2)`` still pairs each value with its gate.
 
+W8A8 layers (``ops/quant.py``) split the same way, as the JAX package
+splits ``kernel_q``/``w_scale``: a column-parallel ``weight_q``, its
+``w_scale`` and bias on the output features; a row-parallel ``weight_q``
+on the input features with ``w_scale`` and the bias whole, and that
+``QuantLinear`` gets the tp group, over which it takes its activation's
+abs-max and sums its int32 partials.
+
 Where tp does not divide a block's heads, that block's q/k/v/out stay
 replicated (its feed-forward is still split): with SD2's heads (5, 10, 20,
 20) that is level 0 at tp = 2 and levels 0-1 at tp = 4.  GSPMD splits those
@@ -38,6 +45,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..ops.quant import QuantLinear
 from .mesh import axis
 
 # "proj_h"/"proj_gate" are the GEGLU value/gate halves; the ff "out" linear
@@ -133,9 +141,9 @@ def param_split_dims(unet: nn.Module, tp: int) -> Dict[str, Optional[int]]:
             owner = unet.get_submodule(".".join(name.split(".")[:-up]))
             if _shardable(owner, tp):
                 if parent in COLUMN_PARALLEL:
-                    dim = 0  # weight [out, in] and bias: the output features
-                elif leaf == "weight":
-                    dim = 1  # row-parallel: the input features; the bias stays whole
+                    dim = 0  # weight(_q) [out, in], w_scale and bias: the output features
+                elif leaf in ("weight", "weight_q"):
+                    dim = 1  # row-parallel: the input features; w_scale and the bias stay whole
         out[name] = dim
     return out
 
@@ -187,15 +195,22 @@ def shard_unet_(unet: nn.Module, mesh) -> nn.Module:
     for name, p in unet.named_parameters():
         if split[name] is not None:
             p.data = shard_tensor(name, p.data, split[name], rank, tp)
+    def is_split(weight: str) -> bool:  # a float or a W8A8 weight
+        return split.get(weight) is not None or split.get(weight + "_q") is not None
+
     for name, m in unet.named_modules():
-        if isinstance(m, Attention) and split.get(f"{name}.to_q.weight") is not None:
+        if isinstance(m, Attention) and is_split(f"{name}.to_q.weight"):
             m.heads //= tp
             m.tp_group = group
-        elif isinstance(m, FeedForward) and split.get(f"{name}.net.0.proj.weight") is not None:
+        elif isinstance(m, FeedForward) and is_split(f"{name}.net.0.proj.weight"):
             m.tp_group = group
-    for m in unet.modules():
+    for name, m in unet.named_modules():
         if isinstance(m, nn.Linear):
             m.out_features, m.in_features = m.weight.shape
+        elif isinstance(m, QuantLinear):
+            m.out_features, m.in_features = m.weight_q.shape
+            if split.get(f"{name}.weight_q") == 1:  # a row-parallel W8A8 shard
+                m.tp_group = group
     return unet
 
 

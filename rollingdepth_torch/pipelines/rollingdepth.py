@@ -34,10 +34,8 @@ makes its own collectives; with no mesh nothing is communicated.
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,9 +43,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..aligner import AlignerConfig, DepthAligner
+from ..ops.quant import is_quantized, to_compute_dtype_
 from ..parallel.mesh import axis
 from ..parallel.sharding import gather_rows, row_block, shard_rows
 from ..utils.device import resolve_device
+from ..utils.profiling import PhaseTimer
 from .snippets import (
     cap_max_dilation,
     chain_stride_index_matrix,
@@ -58,6 +58,35 @@ from .snippets import (
 )
 
 logger = logging.getLogger(__name__)
+
+# the JAX pipelines' small remainder chunk (``_infer_snippets``' tail_sb)
+TAIL_CHUNK = 4
+
+
+def unet_chunks(s: int, max_chunk: int, quantized: bool = False, relight: bool = False) -> List[Tuple[int, int]]:
+    """[start, stop) of the windows of each UNet call over ``s`` windows:
+    chunks of ``max_chunk``, each call at its true size.  A float UNet's
+    windows do not depend on the grouping, so it takes the fewest calls.  A
+    W8A8 UNet's activation scale spans one call, so the grouping is part of
+    its result: with ``quantized`` the windows are grouped as the JAX
+    pipelines group them on one device, chunks of ``max_chunk``
+    (``chunking.pick_chunk``) and a remainder of at most two ``TAIL_CHUNK``s
+    run as such (the mixed-chunk tail of the depth and, with ``relight``,
+    the relight ``_infer_snippets``; JAX splits it to save padded windows,
+    which the port does not run)."""
+    if not quantized:
+        return [(i, min(i + max_chunk, s)) for i in range(0, s, max_chunk)]
+    sb = max_chunk if s >= max_chunk else max(1, min(max_chunk, -(-s // 4) * 4))
+    s_main, rem = (s // sb) * sb, s % sb
+    mixed = s_main > 0 and 0 < rem <= 2 * TAIL_CHUNK and sb > TAIL_CHUNK
+    if relight:
+        saved = (-s % sb) - (-rem % TAIL_CHUNK)
+        mixed = mixed and saved > 0 and s <= 128
+    stop = s_main if mixed else s
+    bounds = [(i, min(i + sb, stop)) for i in range(0, stop, sb)]
+    if mixed:
+        bounds += [(i, min(i + TAIL_CHUNK, s)) for i in range(s_main, s, TAIL_CHUNK)]
+    return bounds
 
 
 class RollingDepthOutput:
@@ -91,7 +120,8 @@ class RollingDepthPipeline:
                  snippet_batch: int = 8, device=None, mesh=None):
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.unet = unet.to(device=self.device, dtype=dtype).eval()
+        # W8A8 weights (ops/quant.py) keep int8 and their fp32 scales
+        self.unet = to_compute_dtype_(unet, self.device, dtype).eval()
         self.vae = vae.to(device=self.device, dtype=dtype).eval()
         self.scheduler = scheduler
         self.empty_text_embed = torch.as_tensor(empty_text_embed).to(device=self.device, dtype=dtype)
@@ -166,18 +196,6 @@ class RollingDepthPipeline:
                                            align_corners=False, antialias=False).cpu().numpy()
         return out
 
-    @contextlib.contextmanager
-    def _phase(self, name: str, timings: Dict[str, float], verbose: bool):
-        """Time a phase into ``timings`` (host clock; with ``verbose`` the
-        card is synchronised first, so the time covers the device work) and
-        mark it as ``rollingdepth.<name>`` for ``torch.profiler``."""
-        t0 = time.perf_counter()
-        with torch.profiler.record_function(f"rollingdepth.{name}"):
-            yield
-            if verbose and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        timings[name] = time.perf_counter() - t0
-
     @torch.no_grad()
     def forward(
         self,
@@ -224,12 +242,14 @@ class RollingDepthPipeline:
         if turbo_refine is None:
             turbo_refine = merge_in_latent
         refine_latent_direct = bool(merge_in_latent and refine_step > 0 and refine_in_latent)
-        timings: Dict[str, float] = {}
+        # per-phase times; ROLLINGDEPTH_TRACE_DIR adds a trace of each (utils/profiling.py)
+        timer = PhaseTimer(verbose, prefix="rollingdepth", device=self.device)
+        timings = timer.timings
         chunks: Dict[str, int] = {}
         dtype, dev = self.dtype, self.device
 
         # ---- 1. encode
-        with self._phase("encode", timings, verbose):
+        with timer.phase("encode"):
             frames = torch.as_tensor(input_frames).to(dev)
             if frames.dtype == torch.uint8:
                 frames = frames.permute(0, 2, 3, 1).to(dtype) / 127.5 - 1.0
@@ -247,7 +267,7 @@ class RollingDepthPipeline:
             noise = torch.randn((h, w, 4), generator=gen, device=dev).to(dtype)
 
         # ---- 2-3. windows and their denoise
-        with self._phase("snippet_infer", timings, verbose):
+        with timer.phase("snippet_infer"):
             idx_ls = [
                 snippet_index_matrix(seq_len, n, d) if stride == 1
                 else chain_stride_index_matrix(seq_len, n, d, stride)
@@ -267,7 +287,7 @@ class RollingDepthPipeline:
         # ---- 4. merge
         merged_lat, snippet_ls = None, []
         if merge_in_latent:
-            with self._phase("coalign", timings, verbose):
+            with timer.phase("coalign"):
                 lat_kwargs = {"factor": 3, "depth_loss_weight": 0.0}
                 lat_kwargs.update(latent_coalign_kwargs or {})
                 merged_lat, _, _, self.last_loss_history = DepthAligner(AlignerConfig(**lat_kwargs)).run(
@@ -279,11 +299,11 @@ class RollingDepthPipeline:
                 # no decode, depth_coaligned comes back None (as in the JAX package)
                 depth_coaligned = None
             else:
-                with self._phase("decode", timings, verbose):
+                with timer.phase("decode"):
                     depth_coaligned = self._decode(merged_lat.to(dtype), max_vae_bs, chunks)[:, None].float()
         else:
             # decode every window's frames (the JAX package counts this in snippet_infer)
-            with self._phase("snippet_decode", timings, verbose):
+            with timer.phase("snippet_decode"):
                 flat = torch.cat([lat.reshape((-1,) + lat.shape[2:]) for lat in lat_ls])
                 mine = shard_rows(flat, self.mesh, pad=True)  # this dp rank's frames
                 depth_flat = gather_rows(self._decode(mine.to(dtype), max_vae_bs, chunks), self.mesh,
@@ -292,7 +312,7 @@ class RollingDepthPipeline:
                             for g, m in zip(torch.split(depth_flat, [m.size for m in idx_ls]), idx_ls)]
             timings["snippet_infer"] += timings["snippet_decode"]
             snippet_ls = [g.cpu().numpy() for g in group_ls] if unload_snippet else group_ls
-            with self._phase("coalign", timings, verbose):
+            with timer.phase("coalign"):
                 depth_coaligned, _, _, self.last_loss_history = DepthAligner(
                     AlignerConfig(**(coalign_kwargs or {}))
                 ).run(group_ls, dilations, index_mats=idx_ls, seq_len=seq_len)  # [N, 1, H, W]
@@ -304,7 +324,7 @@ class RollingDepthPipeline:
 
         # ---- 6. refinement
         if refine_step > 0:
-            with self._phase("refine", timings, verbose):
+            with timer.phase("refine"):
                 if refine_latent_direct:
                     depth_latent = merged_lat.to(dtype)
                 else:
@@ -318,7 +338,7 @@ class RollingDepthPipeline:
             depth_pred = depth_coaligned
 
         if verbose:
-            logger.info("phase timings: %s", {k: f"{v:.3f}s" for k, v in timings.items()})
+            logger.info("phase timings: %s", timer.summary())
         self.last_timings = timings
         self.last_chunks = chunks
         if fetch_output:
@@ -339,7 +359,8 @@ class RollingDepthPipeline:
     def _infer_snippets(self, rgb_latent, noise, index_matrix: np.ndarray, infer_steps: int,
                         chunks: Dict[str, int]) -> torch.Tensor:
         """Gather windows [S, n, h, w, 4] from the frame latents and denoise
-        them ``snippet_batch`` at a time; returns the windows' latents.  With
+        them at most ``snippet_batch`` at a time (a W8A8 UNet's grouped as
+        the JAX pipeline groups them, ``unet_chunks``); returns the windows' latents.  With
         a mesh this dp rank denoises its block of the windows and the blocks
         are all-gathered."""
         s_all = index_matrix.shape[0]
@@ -349,14 +370,15 @@ class RollingDepthPipeline:
         timesteps = [int(t) for t in self.scheduler.timesteps(infer_steps)]
         idx = torch.as_tensor(index_matrix, device=rgb_latent.device, dtype=torch.long)
         outs = []
-        for i in range(0, s, sb):
-            rgb = rgb_latent[idx[i : i + sb]]  # [sb, n, h, w, 4]
+        bounds = unet_chunks(s, sb, is_quantized(self.unet))
+        for a, b in bounds:
+            rgb = rgb_latent[idx[a:b]]  # [<= sb, n, h, w, 4]
             depth_lat = noise.expand(rgb.shape).to(self.dtype)
             for t in timesteps:
                 eps = self.unet(torch.cat([rgb, depth_lat], dim=-1), t, self.empty_text_embed)
                 depth_lat = self.scheduler.step(eps.float(), t, depth_lat.float(), infer_steps)[0].to(self.dtype)
             outs.append(depth_lat)
-        chunks["unet"] = chunks.get("unet", 0) + -(-s // sb) * len(timesteps)
+        chunks["unet"] = chunks.get("unet", 0) + len(bounds) * len(timesteps)
         return gather_rows(torch.cat(outs), self.mesh, s_all)
 
     def _refine(self, rgb_latent, depth_latent, noise, refine_step: int, snippet_len: int, start_dilation: int,

@@ -45,11 +45,9 @@ work items are independent and the last chunk runs at its true size.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import math
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,9 +55,12 @@ import torch
 import torch.nn.functional as F
 
 from ..aligner import AlignerConfig, DepthAligner
+from ..ops.quant import is_quantized, to_compute_dtype_
 from ..parallel.sharding import gather_rows, shard_rows
 from ..schedulers.dpmsolver import DPMState
 from ..utils.device import resolve_device
+from ..utils.profiling import PhaseTimer
+from .rollingdepth import unet_chunks
 from .snippets import cap_max_dilation, chain_stride_index_matrix, partition_index_matrix, snippet_index_matrix
 
 logger = logging.getLogger(__name__)
@@ -279,7 +280,8 @@ class RollingImgPipeline:
         the t2i init; ``rmbg``: the matting net, run in fp32."""
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.unet = unet.to(device=self.device, dtype=dtype).eval()
+        # W8A8 weights (ops/quant.py) keep int8 and their fp32 scales
+        self.unet = to_compute_dtype_(unet, self.device, dtype).eval()
         self.vae = vae.to(device=self.device, dtype=dtype).eval()
         self.base_unet = None if base_unet is None else base_unet.to(device=self.device, dtype=dtype).eval()
         self.rmbg = None if rmbg is None else rmbg.to(device=self.device, dtype=torch.float32).eval()
@@ -371,17 +373,6 @@ class RollingImgPipeline:
                                                                                      out.B_pred))
         return out
 
-    @contextlib.contextmanager
-    def _phase(self, name: str, timings: Dict[str, float], verbose: bool):
-        """Time a phase (host clock; with ``verbose`` the card is synchronised
-        first) and mark it ``rollingimg.<name>`` for ``torch.profiler``."""
-        t0 = time.perf_counter()
-        with torch.profiler.record_function(f"rollingimg.{name}"):
-            yield
-            if verbose and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        timings[name] = time.perf_counter() - t0
-
     def _noise(self, draw) -> torch.Tensor:
         return as_draw(draw, self.device)
 
@@ -425,19 +416,21 @@ class RollingImgPipeline:
         if cap_dilation:
             dilations = [cap_max_dilation(seq_len, sl, d, verbose) for sl, d in zip(snippet_lengths, dilations)]
         noise = SeededNoise(seed, self.device) if noise is None else noise
-        timings: Dict[str, float] = {}
+        # per-phase times; ROLLINGDEPTH_TRACE_DIR adds a trace of each (utils/profiling.py)
+        timer = PhaseTimer(verbose, prefix="rollingimg", device=self.device)
+        timings = timer.timings
         chunks: Dict[str, int] = {}
         dtype, dev = self.dtype, self.device
 
         # ---- 1. encode fg and bg into the 8-channel condition
-        with self._phase("encode", timings, verbose):
+        with timer.phase("encode"):
             fg, bg = (torch.as_tensor(f).to(dev).permute(0, 2, 3, 1).to(dtype)
                       for f in (input_fg_frames, input_bg_frames))
             fg_lat = self._encode(fg, max_vae_bs, chunks)
             cond_latent = torch.cat([fg_lat, self._encode(bg, max_vae_bs, chunks)], dim=-1)  # [N, h, w, 8]
             del fg, bg
 
-        with self._phase("init", timings, verbose):
+        with timer.phase("init"):
             # ---- 2. prompt embeddings: [cond ; uncond] along tokens, or the empty prompt (gen-3)
             if empty_text:
                 prompt_embeds = encode_prompt_inner(self.tokenizer, self.text_apply, "")[:1]
@@ -470,7 +463,7 @@ class RollingImgPipeline:
                 raise ValueError(f"init_mode {init_mode!r}")
 
         # ---- 4-5. every dilation's windows: denoise, decode
-        with self._phase("snippet_infer_decode", timings, verbose):
+        with timer.phase("snippet_infer_decode"):
             def make_idx(snip_len, dilation, stride):
                 if turbo:  # a partition of each chain; wins over strides
                     return partition_index_matrix(seq_len, snip_len, dilation)
@@ -492,7 +485,7 @@ class RollingImgPipeline:
                           for m in idx_ls]  # [S, n, 3, H, W]
 
         # ---- 6. per-channel co-alignment, each channel to [0, 1]
-        with self._phase("coalign", timings, verbose):
+        with timer.phase("coalign"):
             aligner = DepthAligner(AlignerConfig(**(coalign_kwargs or {})))
             channels = []
             for ch in range(3):
@@ -506,7 +499,7 @@ class RollingImgPipeline:
             snippet_ls = groups
             aligned_ls = [(torch.cat(channels, dim=1) * 2.0 - 1.0)[None]]
         if verbose:
-            logger.info("phase timings: %s", {k: f"{v:.3f}s" for k, v in timings.items()})
+            logger.info("phase timings: %s", timer.summary())
         self.last_timings = timings
         self.last_chunks = chunks
         if fetch_output:
@@ -560,7 +553,8 @@ class RollingImgPipeline:
                         prompt_embeds, timesteps, sigmas, begin_index: int, noise, vae_bs: int,
                         num_inference_steps: int, cond_first: bool, chunks: Dict[str, int]) -> torch.Tensor:
         """Windows [S, n] of the frame latents: the SDE denoise from
-        ``begin_index``, ``snippet_batch`` windows at a time, then every
+        ``begin_index``, at most ``snippet_batch`` windows at a time (a W8A8
+        UNet's grouped as JAX groups them, ``rollingdepth.unet_chunks``), then every
         window frame decoded.  Returns [S, n, 3, H, W] in the pipeline dtype.
         With a mesh this dp rank runs its block of the windows and the
         decoded blocks are all-gathered."""
@@ -571,8 +565,9 @@ class RollingImgPipeline:
         sb, dtype = self.snippet_batch, self.dtype
         idx = torch.as_tensor(index_matrix, device=cond_latent.device, dtype=torch.long)
         lats = []
-        for c in range(0, s, sb):
-            ic, sid = idx[c : c + sb], snippet_ids[c : c + sb]
+        bounds = unet_chunks(s, sb, is_quantized(self.unet), relight=True)
+        for a, b in bounds:
+            ic, sid = idx[a:b], snippet_ids[a:b]
             cond_c, lat = cond_latent[ic], init_latents[ic]  # [b, n, h, w, 8], [b, n, h, w, 4]
             state = DPMState.init()
             for i, t in enumerate(timesteps):
@@ -583,7 +578,7 @@ class RollingImgPipeline:
                                                   num_inference_steps, state, noise=step_noise)
                 lat = prev.to(dtype)
             lats.append(lat)
-        chunks["unet"] = chunks.get("unet", 0) + -(-s // sb) * len(timesteps)
+        chunks["unet"] = chunks.get("unet", 0) + len(bounds) * len(timesteps)
         lat = torch.cat(lats)
         img = self._decode(lat.reshape((s * n,) + lat.shape[2:]), vae_bs, chunks)  # [S*n, H, W, 3]
         img = img.reshape((s, n) + img.shape[1:]).permute(0, 1, 4, 2, 3).contiguous()

@@ -31,6 +31,7 @@ from ..models.layers import init_random_
 from ..models.rmbg import BriaRMBG
 from ..models.unet import UNet2DConditionModel, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
+from ..ops.quant import apply_quantize
 from ..ops.score_probe import calibrate_nomax
 from ..parallel.sharding import shard_unet_
 from ..pipelines.rollingdepth import RollingDepthPipeline
@@ -72,15 +73,18 @@ def _calibrate(unet, mesh) -> float:
 
 
 @torch.no_grad()
-def random_depth_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snippet_batch: int = 8, mesh=None):
+def random_depth_pipeline(device=None, dtype=torch.bfloat16, seed: int = 0, snippet_batch: int = 8, mesh=None,
+                          quantize=None):
     """Returns (pipeline, score-probe bound).  The max-free gate is
-    calibrated on the random UNet, as the loader does on real weights."""
+    calibrated on the random UNet, as the loader does on real weights, and
+    then the UNet is quantized (``quantize="w8a8"``) and sharded."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     unet = init_random_(UNet2DConditionModel(UNetConfig.sd21(), device=dev), gen).to(dtype).eval()
     vae = init_random_(AutoencoderKL(VAEConfig(), device=dev), gen).to(dtype).eval()
     text = init_random_(CLIPTextModel(CLIPTextConfig(), device=dev), gen).eval()
     bound = _calibrate(unet, mesh)
+    apply_quantize(unet, quantize)
     empty = text(torch.tensor([EMPTY_PROMPT_IDS], device=dev))
     pipe = RollingDepthPipeline(shard_unet_(unet, mesh), vae, DDIMScheduler(DEPTH_SCHEDULER), empty, dtype=dtype,
                                 snippet_batch=snippet_batch, device=dev, mesh=mesh)

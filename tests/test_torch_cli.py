@@ -65,13 +65,22 @@ def clip(tmp_path_factory):
 
 @pytest.mark.parametrize("dtype, res, start, count", [("uint8", 0, 0, 0), ("float32", 0, 2, 3),
                                                       ("uint8", 24, 1, 0), ("float32", 64, 0, 5)])
-def test_load_video_frames_matches_jax(clip, dtype, res, start, count):
+def test_load_video_frames_matches_jax(clip, dtype, res, start, count, monkeypatch):
+    """Each decoder against its own counterpart: the native one where both
+    copies load it, OpenCV always; never one against the other."""
+    from rollingdepth_torch.io import native_video as tnative
+    from rollingdepth_tpu.io import native_video as jnative
+
     kw = dict(start_frame=start, frame_count=count, processing_res=res, dtype=dtype)
-    got, got_res = tvideo.load_video_frames(clip, **kw)
-    want, want_res = jvideo.load_video_frames(clip, **kw)
-    assert got.dtype == want.dtype and got_res == want_res == (32, 48)
-    np.testing.assert_array_equal(got, want)
-    assert tvideo.get_video_fps(clip) == jvideo.get_video_fps(clip)
+    for decoder in (["native"] if tnative.available() and jnative.available() else []) + ["opencv"]:
+        if decoder == "opencv":
+            monkeypatch.setattr(tnative, "available", lambda: False)
+            monkeypatch.setattr(jnative, "available", lambda: False)
+        got, got_res = tvideo.load_video_frames(clip, **kw)
+        want, want_res = jvideo.load_video_frames(clip, **kw)
+        assert got.dtype == want.dtype and got_res == want_res == (32, 48)
+        np.testing.assert_array_equal(got, want)
+        assert tvideo.get_video_fps(clip) == jvideo.get_video_fps(clip)
 
 
 @pytest.fixture(scope="module")
@@ -152,12 +161,33 @@ def test_cli_eval_end_to_end(checkpoint, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, error", [
-    (["-i", "clip.mp4", "--quantize", "w8a8", "--device", "cpu"], "ROADMAP item 17"),
+    (["-i", "clip.mp4", "--quantize", "int4", "--device", "cpu"], SystemExit),
 ])
 def test_unported_modes_raise(checkpoint, tmp_path, argv, error):
-    """``--quantize`` (relighting, ``-fi/-bi``, runs: ``test_torch_relight_cli.py``)."""
-    with pytest.raises(NotImplementedError, match=error):
+    """Every mode of the JAX CLI is ported (``--quantize w8a8`` runs:
+    ``test_cli_w8a8_end_to_end``); a quantization the JAX CLI does not
+    know is refused at parsing, as there."""
+    with pytest.raises(error):
         tcli.main(argv + ["-o", str(tmp_path / "out"), "-c", checkpoint])
+    with pytest.raises(SystemExit):
+        jcli.build_parser().parse_args(argv + ["-o", str(tmp_path / "out")])
+
+
+def test_cli_w8a8_end_to_end(checkpoint, clip, tmp_path):
+    """``--quantize w8a8`` on the CPU: the output suite, and ``_pred.npy``
+    equal to the W8A8 pipeline's ``__call__``; not the float pipeline's."""
+    out = tmp_path / "out"
+    tcli.main(["-i", clip, "-o", str(out), "-c", checkpoint, "--quantize", "w8a8"] + BASE_ARGV)
+    assert {p.name for p in out.iterdir()} == {"clip_pred.npy", "clip_Spectral_r.mp4", "clip_Greys_r.mp4",
+                                               "clip_rgbd.mp4"}
+    pred = np.load(out / "clip_pred.npy")
+    kw = dict(input_video_path=clip, processing_res=48, dilations=[1, 3], refine_step=1, seed=0,
+              merge_in_latent=False)
+    pipe = load_pipeline(checkpoint, dtype="fp32", quantize="w8a8", device="cpu")
+    assert pipe.unet.down_blocks[0].resnets[0].conv1.weight_q.dtype == torch.int8
+    np.testing.assert_array_equal(pred, pipe(**kw).depth_pred[:, 0])
+    fp = load_pipeline(checkpoint, dtype="fp32", device="cpu")(**kw).depth_pred[:, 0]
+    assert not np.array_equal(pred, fp) and np.corrcoef(pred.ravel(), fp.ravel())[0, 1] > 0.95
 
 
 def test_missing_input_exits_1(tmp_path):

@@ -187,8 +187,10 @@ def test_eval_metrics(tmp_path):
                                   j_eval.load_frames_from_manifest(j_s, 7))
 
 
-def test_video_helpers(tmp_path):
+def test_video_helpers(tmp_path, monkeypatch):
+    import rollingdepth_torch.io.native_video as t_native
     import rollingdepth_torch.io.video as t_vid
+    import rollingdepth_tpu.io.native_video as j_native
     import rollingdepth_tpu.io.video as j_vid
 
     rng = np.random.default_rng(2)
@@ -208,6 +210,15 @@ def test_video_helpers(tmp_path):
         assert t_vid.enumerate_videos(p) == j_vid.enumerate_videos(p)
     frames = (rng.random((4, 16, 24, 3)) * 255).astype(np.uint8)
     t_vid.write_video_from_numpy(frames, tmp_path / "out.avi", fps=12, codec="MJPG")
+    # each decoder against its own counterpart, never libavcodec against
+    # OpenCV: the native decoder where both copies load it, OpenCV always
+    if t_native.available() and j_native.available():
+        got, _ = t_vid.load_video_frames(tmp_path / "out.avi", dtype="uint8")
+        want, _ = j_vid.load_video_frames(tmp_path / "out.avi", dtype="uint8")
+        assert got.shape == (4, 3, 16, 24)
+        np.testing.assert_array_equal(got, want)
+    monkeypatch.setattr(t_native, "available", lambda: False)
+    monkeypatch.setattr(j_native, "available", lambda: False)
     got, _ = t_vid.load_video_frames(tmp_path / "out.avi", dtype="uint8")
     want, _ = j_vid.load_video_frames(tmp_path / "out.avi", dtype="uint8")
     assert got.shape == (4, 3, 16, 24)

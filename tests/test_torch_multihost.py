@@ -50,7 +50,18 @@ def clips(tmp_path_factory):
 
 
 def test_cli_two_processes(checkpoint, clips, tmp_path):  # noqa: F811
-    argv = ["-i", str(clips), "-c", checkpoint, "--cmap", "", "--save-sbs", "false"] + BASE_ARGV + ["--refine-step", "0"]
+    _cli_two_processes(checkpoint, clips, tmp_path, [])
+
+
+def test_cli_two_processes_w8a8(checkpoint, clips, tmp_path):  # noqa: F811
+    """``--quantize w8a8`` under the launcher, as under ``torchrun``: each
+    rank's clips equal one process's, bit for bit."""
+    _cli_two_processes(checkpoint, clips, tmp_path, ["--quantize", "w8a8"])
+
+
+def _cli_two_processes(checkpoint, clips, tmp_path, extra):  # noqa: F811
+    argv = (["-i", str(clips), "-c", checkpoint, "--cmap", "", "--save-sbs", "false"] + BASE_ARGV
+            + ["--refine-step", "0"] + extra)
     ranks = run_ranks(R.cli_rank, 2, args=(argv, str(tmp_path)), device="cpu", threads=1, timeout=240)
     assert [r["world"] for r in ranks] == [2, 2]
     assert all(r["local_mesh"] == (("dp", "tp"), (1, 1)) for r in ranks)

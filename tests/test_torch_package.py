@@ -45,7 +45,8 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"flash_attention.py", "attention.py", "unet.py", "rollingdepth.py", "chip_smoke.py", "cli.py", "video.py",
             "native_video.py", "colorize.py", "eval.py", "training.py", "training_data.py", "mesh.py", "sharding.py",
-            "multihost.py", "launch.py", "multihost_demo.py", "torch_parallel_ranks.py"} <= names
+            "multihost.py", "launch.py", "multihost_demo.py", "torch_parallel_ranks.py", "quant.py", "profiling.py",
+            "bench_init.py", "bench.py", "bench_int8.py"} <= names
 
 
 def _no_card():
@@ -88,7 +89,9 @@ def test_explicit_cpu_is_accepted():
 
 @pytest.mark.parametrize("tool, argv", [("profile_fast_path", ["--preset", "full"]),
                                         ("chunk_times", ["--preset", "paper"]),
-                                        ("fp32_attention_parts", [])])
+                                        ("fp32_attention_parts", []),
+                                        ("bench", ["--quantize", "w8a8"]),
+                                        ("bench_int8", [])])
 def test_card_tools_refuse_without_a_card(tool, argv, capsys):
     """The timing tools run on the card only: here they exit 2 and say why."""
     import importlib

@@ -24,6 +24,9 @@ Tolerances:
   solve within 5e-3 (``test_pipeline_sharded.py``);
 - the dp x tp relight windows and R/G/B against the unsharded port: 1e-5
   of their scale;
+- the dp x tp W8A8 UNet: bit for bit against the unsharded quantized port,
+  and JAX's quantized-UNet bounds (correlation above 0.99, rms below 0.1)
+  against JAX's sharded W8A8 (the test says why no tighter);
 - the dp x tp train step against JAX's: loss rtol 1e-5, grad_norm rtol
   1e-4 (``tests/test_parallel.py``), every parameter element within
   1e-6 + 2.2 lr (``tests/test_torch_training.py``) and each parameter's
@@ -36,6 +39,8 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
 import numpy as np
 import pytest
 import torch
@@ -52,6 +57,8 @@ from rollingdepth_tpu import training as jt
 from rollingdepth_tpu.models.unet import UNet2DCondition, unet_apply
 from rollingdepth_tpu.models.unet import UNetConfig as JUNetConfig
 from rollingdepth_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from rollingdepth_tpu.ops import quant as jq
+from rollingdepth_tpu.parallel.sharding import shard_params as jax_shard_params
 from rollingdepth_tpu.parallel.sharding import unet_param_sharding as jax_unet_param_sharding
 from rollingdepth_tpu.pipelines.rollingdepth import RollingDepthPipeline as JRollingDepthPipeline
 from rollingdepth_tpu.schedulers.ddim import DDIMConfig as JDDIMConfig
@@ -104,6 +111,25 @@ def _jax_refs(inp, tp_pair, pipe_parts, train_pair):
     tp_cfg, tp_params = tp_pair
     refs = {"unet": np.asarray(unet_apply(tp_params, tp_cfg, jnp.asarray(inp["unet_x"]), jnp.full((2,), 500),
                                           jnp.asarray(inp["unet_text"])))}
+    # W8A8: JAX's quantized tree on a (2, 2) mesh of the conftest's CPU
+    # devices, each dp shard's windows under shard_map (as the pipelines
+    # run them; manual over dp) and tp left to GSPMD, whose abs-max spans
+    # the whole tensor
+    qparams = jq.quantize_unet_params(tp_params)
+    jmesh = jax_make_mesh(jax.devices()[:4], (2, 2))
+
+    def sharded(p, x):
+        def chunk(xs):
+            return unet_apply(p, tp_cfg, xs, jnp.full((xs.shape[0],), 500), jnp.asarray(inp["unet_text"]))
+
+        return jax.shard_map(chunk, mesh=jmesh, in_specs=P("dp"), out_specs=P("dp"), check_vma=False,
+                             axis_names=frozenset({"dp"}))(x)
+
+    x = jax.device_put(jnp.asarray(inp["unet_x"]), NamedSharding(jmesh, P("dp")))
+    refs["w8a8_sharded"] = np.asarray(jax.jit(sharded)(jax_shard_params(qparams, jmesh), x))
+    refs["w8a8_halves"] = np.concatenate([
+        np.asarray(unet_apply(qparams, tp_cfg, jnp.asarray(h), jnp.full((1,), 500), jnp.asarray(inp["unet_text"])))
+        for h in np.split(inp["unet_x"], 2)])
     ucfg, unet_params, vae_params, text = pipe_parts
     from rollingdepth_tpu.models.vae import AutoencoderKL as JAutoencoderKL
     from rollingdepth_tpu.models.vae import VAEConfig as JVAEConfig
@@ -143,7 +169,7 @@ def _port_refs(inp):
     torch.set_num_threads(1)
     try:
         return {"depth": R.run_depth(R.depth_pipeline(inp["pipe"]), inp["frames"], inp["noise"]),
-                "relight": R.run_relight(R.relight_pipeline())}
+                "relight": R.run_relight(R.relight_pipeline()), "w8a8": R.w8a8_unet(inp)}
     finally:
         torch.set_num_threads(threads)
 
@@ -291,6 +317,36 @@ def test_tp2_unet_matches_jax(world):
         np.testing.assert_allclose(r["unet_tp2"], world["jax"]["unet"], atol=2e-5, rtol=2e-5)
         before, after = r["split_before_after"]
         assert before == after and sum(d is not None for d in before.values()) == 44
+
+
+def _drift(got, ref):
+    """(correlation, rms of the difference over the reference's spread), the
+    drift measures of ``tests/test_quant.py``."""
+    got, ref = np.asarray(got).ravel(), np.asarray(ref).ravel()
+    return np.corrcoef(got, ref)[0, 1], np.sqrt(((got - ref) ** 2).mean()) / ref.std()
+
+
+def test_dp_tp_w8a8_unet_matches_jax(world):
+    """The W8A8 UNet on the (2, 2) mesh, one window per dp rank.  Against
+    the unsharded port on the same window, bit for bit: the row-parallel
+    shards sum exact int32 partials under one all-reduced activation scale
+    (a shard that scales by its own abs-max must part from it by over 1%
+    rms).  Against JAX's sharded W8A8 (shard_map over dp, GSPMD over tp),
+    JAX's bounds for a quantized UNet (correlation above 0.99, rms below
+    0.1 of the spread), which also hold JAX's sharded call to its unsharded
+    one: a rounding that flips between fp32 sum orders cascades through the
+    int8 layers, so no fp tolerance holds."""
+    want, halves = world["jax"]["w8a8_sharded"], world["jax"]["w8a8_halves"]
+    corr, rel_rms = _drift(want, halves)  # JAX's scale is per dp shard, as the port's
+    assert corr > 0.99 and rel_rms < 0.1
+    alone = world["port"]["w8a8"]["w8a8"]
+    for r in world["ranks"]:
+        dp_rank = r["dp"][1]
+        got = r["w8a8"]["w8a8"]
+        np.testing.assert_array_equal(got, alone[dp_rank : dp_rank + 1])
+        corr, rel_rms = _drift(got, want[dp_rank : dp_rank + 1])
+        assert corr > 0.99 and rel_rms < 0.1, (corr, rel_rms)
+        assert _drift(r["w8a8"]["local_absmax"], alone[dp_rank : dp_rank + 1])[1] > 0.01
 
 
 def test_collectives_in_unet_calls(world):

@@ -1,0 +1,78 @@
+"""``rollingdepth_torch/utils/profiling.py`` against ``rollingdepth_tpu/utils/profiling.py``,
+and the traces the pipelines write under ``ROLLINGDEPTH_TRACE_DIR``, on the CPU."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from rollingdepth_torch.utils import profiling as tprof
+from rollingdepth_tpu.utils import profiling as jprof
+from tests.test_torch_pipeline import _inputs, _jax_parts, _torch_pipe
+
+torch.set_num_threads(2)
+
+
+def test_summary_and_accumulation_match_jax(monkeypatch):
+    """The same phases give the same ``timings`` keys and the same summary
+    format; a phase that runs twice adds up, as in JAX."""
+    monkeypatch.delenv(tprof.TRACE_ENV, raising=False)
+    assert tprof.TRACE_ENV == jprof.TRACE_ENV
+    t, j = tprof.PhaseTimer(), jprof.PhaseTimer()
+    for timer in (t, j):
+        for name in ("encode", "unet", "encode"):
+            with timer.phase(name):
+                pass
+    assert list(t.timings) == list(j.timings) == ["encode", "unet"]
+    t.timings, j.timings = {"a": 1.25, "b": 0.5}, {"a": 1.25, "b": 0.5}
+    assert t.summary() == j.summary() == "total=1.75s (a=1.25s, b=0.50s)"
+
+
+def test_trace_dir_gets_one_trace_per_phase(monkeypatch, tmp_path):
+    """A depth call under ``ROLLINGDEPTH_TRACE_DIR`` writes one Chrome trace
+    per phase, each holding its phase's range; a second call numbers its own."""
+    monkeypatch.setenv(tprof.TRACE_ENV, str(tmp_path / "traces"))
+    _, unet_params, vae_params = _jax_parts()
+    text = np.random.default_rng(5).standard_normal((1, 2, 8)).astype(np.float32)
+    pipe = _torch_pipe(unet_params, vae_params, text)
+    frames, noise = _inputs(n=6)
+    pipe.forward(frames, dilations=[1, 3], merge_in_latent=True, init_noise=noise,
+                 latent_coalign_kwargs={"num_iterations": 1})
+    phases = ["encode", "snippet_infer", "coalign", "decode"]
+    assert list(pipe.last_timings) == phases
+    assert sorted(p.name for p in (tmp_path / "traces").iterdir()) == sorted(f"{p}.json" for p in phases)
+    for phase in phases:
+        with open(tmp_path / "traces" / f"{phase}.json") as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        assert f"rollingdepth.{phase}" in names, phase
+    pipe.forward(frames, dilations=[1, 3], merge_in_latent=True, init_noise=noise,
+                 latent_coalign_kwargs={"num_iterations": 1})
+    assert len(list((tmp_path / "traces").iterdir())) == 2 * len(phases)
+    assert (tmp_path / "traces" / "encode.1.json").exists()
+
+
+def test_no_trace_without_the_variable(monkeypatch, tmp_path):
+    monkeypatch.delenv(tprof.TRACE_ENV, raising=False)
+    monkeypatch.chdir(tmp_path)
+    timer = tprof.PhaseTimer(verbose=True)
+    with timer.phase("x"):
+        pass
+    assert list(tmp_path.iterdir()) == [] and timer.timings["x"] >= 0
+
+
+def test_annotate_is_a_profiler_range():
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tprof.annotate("rollingdepth.test_range"):
+            torch.ones(3).sum()
+    assert "rollingdepth.test_range" in {e.key for e in prof.key_averages()}
+
+
+def test_a_failing_phase_still_writes_its_trace(monkeypatch, tmp_path):
+    monkeypatch.setenv(tprof.TRACE_ENV, str(tmp_path))
+    timer = tprof.PhaseTimer()
+    with pytest.raises(ValueError):
+        with timer.phase("broken"):
+            raise ValueError("in the phase")
+    assert (tmp_path / "broken.json").exists()

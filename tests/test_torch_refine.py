@@ -166,9 +166,14 @@ def test_restore_res(both, original_res):
     assert np.isfinite(ref).all()
 
 
-def test_call_reads_video(both, tmp_path):
-    """``__call__(input_video_path=...)`` decodes the clip as the JAX call does."""
+def test_call_reads_video(both, tmp_path, monkeypatch):
+    """``__call__(input_video_path=...)`` decodes the clip as the JAX call
+    does: with OpenCV on both sides, and with the native decoder where both
+    copies load it (never one decoder against the other)."""
     import cv2
+
+    import rollingdepth_torch.io.native_video as t_native
+    import rollingdepth_tpu.io.native_video as j_native
 
     jpipe, tpipe = both
     frames, _ = _inputs()
@@ -178,8 +183,13 @@ def test_call_reads_video(both, tmp_path):
         writer.write(np.ascontiguousarray(f.transpose(1, 2, 0)[:, :, ::-1]))
     writer.release()
     kw = dict(LATENT, latent_coalign_kwargs={"num_iterations": 1}, processing_res=32, seed=0)
-    got = tpipe(path, **kw)
-    ref = jpipe(path, **kw)
-    np.testing.assert_array_equal(got.input_frames, ref._input_frames)
-    np.testing.assert_allclose(got.input_rgb, ref.input_rgb)
-    assert got.depth_pred.shape == (10, 1, 32, 32)
+    decoders = ["native", "opencv"] if t_native.available() and j_native.available() else ["opencv"]
+    for decoder in decoders:
+        if decoder == "opencv":
+            monkeypatch.setattr(t_native, "available", lambda: False)
+            monkeypatch.setattr(j_native, "available", lambda: False)
+        got = tpipe(path, **kw)
+        ref = jpipe(path, **kw)
+        np.testing.assert_array_equal(got.input_frames, ref._input_frames)
+        np.testing.assert_allclose(got.input_rgb, ref.input_rgb)
+        assert got.depth_pred.shape == (10, 1, 32, 32)

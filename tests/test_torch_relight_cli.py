@@ -168,10 +168,36 @@ def test_relight_call_on_videos(checkpoint, clips):
 
 
 def test_quantize_still_raises_for_relight(checkpoint, clips, tmp_path):
+    """A quantization mode the JAX package does not know raises, in the
+    loader as in the CLI (``w8a8`` runs: ``test_relight_cli_w8a8``)."""
     fg, _, bg_a = clips
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+    with pytest.raises(ValueError, match="int4"):
+        load_relight_pipeline(checkpoint, dtype="fp32", quantize="int4", device="cpu")
+    with pytest.raises(SystemExit):
         tcli.main(["-fi", fg, "-bi", bg_a, "-o", str(tmp_path / "out"), "-c", checkpoint, "--device", "cpu",
-                   "--quantize", "w8a8"])
+                   "--quantize", "int4"])
+
+
+def test_relight_cli_w8a8(checkpoint, clips, tmp_path, monkeypatch):
+    """``-fi/-bi --quantize w8a8``: the relight UNet quantized, the base t2i
+    UNet not (as the JAX loader does), and the clip written."""
+    import cv2
+
+    monkeypatch.setattr(tri, "RELIGHT_WIDTH", 24)
+    monkeypatch.setattr(tri, "RELIGHT_HEIGHT", 16)
+    pipe = load_relight_pipeline(checkpoint, dtype="fp32", quantize="w8a8", device="cpu")
+    assert pipe.unet.down_blocks[0].resnets[0].conv1.weight_q.dtype == torch.int8
+    assert pipe.unet.down_blocks[0].resnets[0].conv1.w_scale.dtype == torch.float32
+    assert type(pipe.base_unet.down_blocks[0].resnets[0].conv1) is torch.nn.Conv2d
+    fg, _, bg_a = clips
+    tcli.main(["-fi", fg, "-bi", bg_a, "-o", str(tmp_path / "out"), "-p", "none", "-c", checkpoint, "--device",
+               "cpu", "--dilations", "1", "--dtype", "fp32", "--frame-count", "6", "--seed", "1", "--snippet-batch",
+               "4", "--quantize", "w8a8"])
+    cap = cv2.VideoCapture(str(tmp_path / "out" / "fg_rgb.mp4"))
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 6
+    ok, frame = cap.read()
+    cap.release()
+    assert ok and frame.shape == (16, 24, 3)
 
 
 @pytest.mark.parametrize("make", ["pipeline", "loader", "synthetic", "rmbg", "sd", "cli"])

@@ -227,6 +227,33 @@ def _train(inp: Dict, mesh, ckpt: str) -> Dict:
     return out
 
 
+def w8a8_unet(inp: Dict, mesh=None) -> Dict:
+    """The TP_UNET quantized to W8A8 (``quantize_unet_``, then
+    ``shard_unet_``), one call per dp block of ``unet_x``'s two windows
+    (this dp rank's; both, one after the other, without a mesh); and, as a
+    planted fault, with each row-parallel shard's activation scale taken
+    from its own shard (no abs-max all-reduce)."""
+    from rollingdepth_torch.ops import quant
+
+    dp, r, _ = axis(mesh, "dp")
+    unet = UNet2DConditionModel(UNetConfig(**TP_UNET), device="cpu")
+    unet.load_state_dict(inp["unet_sd"])
+    shard_unet_(quant.quantize_unet_(unet), mesh)
+    blocks = torch.from_numpy(inp["unet_x"]).chunk(2)
+    blocks = blocks if mesh is None else blocks[r : r + 1]
+    ctx = torch.from_numpy(inp["unet_text"])
+    with torch.no_grad():
+        out = {"w8a8": np.concatenate([unet(x, 500, ctx).numpy() for x in blocks])}
+        if mesh is not None:
+            orig = quant.quantize_activation
+            quant.quantize_activation = lambda t, group=None: orig(t)
+            try:
+                out["local_absmax"] = unet(blocks[0], 500, ctx).numpy()
+            finally:
+                quant.quantize_activation = orig
+    return out
+
+
 def rank_main(rank: int, inputs_path: str, ckpt: str) -> Dict:
     inp = torch.load(inputs_path, weights_only=False)
     mesh = make_mesh((2, 2), "cpu")
@@ -243,6 +270,7 @@ def rank_main(rank: int, inputs_path: str, ckpt: str) -> Dict:
         res["unet_tp2"] = unet(torch.from_numpy(inp["unet_x"]), 500, torch.from_numpy(inp["unet_text"])).numpy()
     res["split_before_after"] = (before, unet_param_sharding(unet, mesh))
 
+    res["w8a8"] = w8a8_unet(inp, mesh)
     res["collectives"] = _collectives(inp, mesh)
     res["depth"] = run_depth(depth_pipeline(inp["pipe"], mesh), inp["frames"], inp["noise"])
     res["relight"] = run_relight(relight_pipeline(mesh))
