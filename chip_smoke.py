@@ -93,6 +93,19 @@ Phases, each of which must pass or the script exits non-zero:
            bit for bit against one process (the int32 sums are exact), and
            the same chunk with each row-parallel shard's activation scale
            from its own shard (no abs-max all-reduce), which must differ.
+repeat  two runs of each serving path on the same frames, weights and seed
+           must be bit-equal (``torch.equal``), each logged with its element
+           count and differences: ``fast`` (the warm-up against the timed
+           call in main), ``full`` (a second 12-frame call against its
+           warm-up), ``paper`` (the depth-space solve and full-resolution
+           merge twice on the paper call's decoded windows), relight's R, G
+           and B (a second 6-frame call against its warm-up), and
+           ``tools/multihost_demo.py`` on the card in a subprocess (each
+           worker's clips against one process's, bit for bit).  With
+           ``--measure-repeats`` a pair that differs is logged and the run
+           goes on (to measure a tree whose runs differ, such as an older
+           commit's package); the script then exits 1 before its ``kernels``
+           line.
 In main, full, paper, relight and train the kernel launch counts must
 equal what the chunk and step counts imply (``attention_kernel_launches``,
 ``relight_kernel_launches``, ``train_kernel_launches``); the depth must be
@@ -154,6 +167,39 @@ def depth_drift(a, b) -> dict:
     return {"mean_abs_err": float(d.mean()), "max_abs_err": float(d.max()),
             "corr": float(np.corrcoef(a.ravel(), b.ravel())[0, 1]),
             "rel_rms": float(np.sqrt((d * d).mean()) / b.std()), "finite": bool(np.isfinite(a).all())}
+
+
+def diff_stats(a, b) -> dict:
+    """How two runs' outputs (tensors or arrays of one shape) differ."""
+    import torch
+
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.shape != b.shape:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
+    d = (a.double() - b.double()).abs()
+    return {"elements": a.numel(), "differ": int((a != b).sum()), "max_abs": float(d.max()),
+            "mean_abs": float(d.mean()), "equal": bool(torch.equal(a, b))}
+
+
+REPEATS_DIFFERED = []  # with --measure-repeats: the paths whose two runs differed
+
+
+def repeat_verdict(record: dict, measure_only: bool) -> None:
+    """Log one repeat pair; raise unless its two runs were equal, or, with
+    ``measure_only``, note it and go on."""
+    log({"phase": "repeat", **record})
+    if record["equal"]:
+        return
+    if not measure_only:
+        raise AssertionError(f"{record['path']}: two runs on the same inputs differ: {record}")
+    REPEATS_DIFFERED.append(record["path"])
+
+
+def held_equal(path: str, a, b, seconds_added: float, measure_only: bool = False, **extra) -> None:
+    """Two runs of one path on the same inputs, weights and seed: logged
+    (elements, how many differ, max and mean |difference|, and ``extra``,
+    such as each run's coalign seconds), then bit for bit or raise."""
+    repeat_verdict({"path": path, **diff_stats(a, b), "seconds_added": seconds_added, **extra}, measure_only)
 
 
 def kernel_calls(attn, cfg, n: int, h: int, w: int, tp: int = 1) -> list:
@@ -524,7 +570,7 @@ def check_rgb(what, out, shape) -> None:
             raise AssertionError(f"{what}: {name} {c.shape} (want {shape}) not finite or outside [0, 1]")
 
 
-def relight_phase(torch, attn, fa, gen, smi):
+def relight_phase(torch, attn, fa, gen, smi, measure_only: bool):
     """The relight path (``pipelines/rollingimg.py``) at full SD1.5 width with
     random weights: a 6-frame warm-up, then a timed bf16 call on 24 frames of
     720x640 (``RELIGHT_CALL``: dilations [1, 25] capped to [1, 7], 22 + 10
@@ -548,9 +594,16 @@ def relight_phase(torch, attn, fa, gen, smi):
     bg = torch.rand((n,) + RELIGHT_RES, generator=gen, device="cuda") * 2 - 1
 
     t0 = time.perf_counter()
-    pipe.forward(fg[:6], bg[:6], **RELIGHT_CALL)
+    warm = pipe.forward(fg[:6], bg[:6], verbose=True, **RELIGHT_CALL)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    warm_coalign = pipe.last_timings["coalign"]
+    t0 = time.perf_counter()
+    again = pipe.forward(fg[:6], bg[:6], verbose=True, **RELIGHT_CALL)
+    held_equal("relight_6_frames_rgb", np.concatenate([warm.R_pred, warm.G_pred, warm.B_pred], axis=1),
+               np.concatenate([again.R_pred, again.G_pred, again.B_pred], axis=1), time.perf_counter() - t0,
+               measure_only, coalign_s=[warm_coalign, pipe.last_timings["coalign"]])
+    del warm, again
     # the parallel phase's reference (c): 6 frames, solves cut to 0 steps, every window kept
     call6 = dict(RELIGHT_CALL, coalign_kwargs={"num_iterations": 0}, keep_snippets=True)
     ref6 = pipe.forward(fg[:6], bg[:6], **call6)
@@ -1175,18 +1228,29 @@ PAPER_FRAMES = 51  # 3 frames at dilation 25 span 51
 PAPER_RES = (3, 432, 768)  # the paper preset's res 768, 16:9
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port on one card and hold its kernels and paths.")
+    parser.add_argument("--measure-repeats", action="store_true",
+                        help="log how each repeat pair differs and go on (to measure a tree whose runs differ); "
+                             "the script then exits 1 at its end, without its last line, if any pair differed")
+    args = parser.parse_args(argv)
+    measure_only = args.measure_repeats
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
         return 2
+    from rollingdepth_torch.aligner import AlignerConfig, DepthAligner
     from rollingdepth_torch.ops import _build
     from rollingdepth_torch.ops import attention as attn
     from rollingdepth_torch.ops import conv3x3 as conv
     from rollingdepth_torch.ops import flash_attention as fa
     from rollingdepth_torch.ops import flash_variants as fv
+    from rollingdepth_torch.pipelines.snippets import snippet_index_matrix
     from rollingdepth_torch.tools import bench_flash_variants as bench
+    from rollingdepth_torch.tools import multihost_demo as demo_mod
     from rollingdepth_torch.utils.synthetic import FAST_PRESET, FULL_PRESET, PAPER_PRESET, random_depth_pipeline
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1227,9 +1291,10 @@ def main() -> int:
     fast = FAST_PRESET
 
     t0 = time.perf_counter()
-    pipe(input_frames=frames, **fast)
+    warm = pipe(input_frames=frames, verbose=True, **fast).depth_pred
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    warm_coalign = pipe.last_timings["coalign"]
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
@@ -1247,6 +1312,9 @@ def main() -> int:
     log({"phase": "main", "frames": n_frames, "res": [height, width], "warmup_s": warm_s, "total_s": total_s,
          "fps": n_frames / total_s, "timings_s": pipe.last_timings, "chunks": chunks, "launches": launches,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+    held_equal("fast", warm, out.depth_pred, 0.0, measure_only,  # the warm-up is the same call
+               coalign_s=[warm_coalign, pipe.last_timings["coalign"]])
+    del warm
 
     # ---- the W8A8 serving mode on the same frames and noise
     t0 = time.perf_counter()
@@ -1271,9 +1339,15 @@ def main() -> int:
     # ---- the full preset: res 1024, latent merge, 10 refine steps
     full_frames = torch.randint(0, 256, (n_frames,) + FULL_RES, generator=gen, device="cuda", dtype=torch.uint8)
     t0 = time.perf_counter()
-    pipe(input_frames=full_frames[:12], **FULL_PRESET)
+    warm = pipe(input_frames=full_frames[:12], verbose=True, **FULL_PRESET).depth_pred
     torch.cuda.synchronize()
     warm_full_s = time.perf_counter() - t0
+    warm_coalign = pipe.last_timings["coalign"]
+    t0 = time.perf_counter()
+    again = pipe(input_frames=full_frames[:12], verbose=True, **FULL_PRESET).depth_pred
+    held_equal("full_12_frames", warm, again, time.perf_counter() - t0, measure_only,
+               coalign_s=[warm_coalign, pipe.last_timings["coalign"]])
+    del warm, again
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1375,11 +1449,23 @@ def main() -> int:
          "fps": PAPER_FRAMES / paper_s, "timings_s": pipe32.last_timings, "chunks": chunks_p,
          "launches": launches_p, "snippet_ls": snippet_shapes,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
-    del pipe32, paper_frames, out_p
+    # the depth-space solve (2000 steps) and the full-resolution merge, twice on the call's decoded windows
+    t0 = time.perf_counter()
+    dil_p = PAPER_PRESET["dilations"]
+    idx_p = [snippet_index_matrix(PAPER_FRAMES, g.shape[1], d) for g, d in zip(out_p.snippet_ls, dil_p)]
+    merged, solve_s = [], []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        merged.append(DepthAligner(AlignerConfig()).run(out_p.snippet_ls, dil_p, index_mats=idx_p,
+                                                        seq_len=PAPER_FRAMES)[0])
+        torch.cuda.synchronize()
+        solve_s.append(time.perf_counter() - t1)
+    held_equal("paper_solve", *merged, time.perf_counter() - t0, measure_only, coalign_s=solve_s)
+    del pipe32, paper_frames, out_p, merged
 
     # ---- the relight path at 720x640, full SD1.5 width
     t0 = time.perf_counter()
-    launches_r, relight_ref = relight_phase(torch, attn, fa, gen, smi)
+    launches_r, relight_ref = relight_phase(torch, attn, fa, gen, smi, measure_only)
     log({"phase": "relight_seconds", "seconds": time.perf_counter() - t0})
 
     # ---- the training path at full SD2 width, fp32, 480x640
@@ -1397,6 +1483,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches_par = parallel_phase(torch, smi, {"depth": par_refs, "relight": relight_ref}, tmp)
     log({"phase": "parallel_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- the multihost demo on the card (its default): 2 workers, each clip bit for bit against one process
+    t0 = time.perf_counter()
+    demo = subprocess.run([sys.executable, "-m", "rollingdepth_torch.tools.multihost_demo"], capture_output=True,
+                          text=True, timeout=600)
+    result = json.loads(demo.stdout.strip().splitlines()[-1]) if demo.returncode == 0 else {}
+    checked = result.get("numerics_check", [])
+    if demo.returncode != 0:
+        print(f"multihost demo: rc {demo.returncode}\n{demo.stderr[-4000:]}", file=sys.stderr)
+    repeat_verdict({"path": "multihost_demo", "rc": demo.returncode, "clips": len(checked),
+                    "elements": len(checked) * demo_mod.N_FRAMES * demo_mod.H * demo_mod.W,
+                    "equal": bool(result.get("ok")) and len(checked) == demo_mod.N_CLIPS
+                    and all(c["max_err_vs_single"] == 0.0 for c in checked),
+                    "seconds_added": time.perf_counter() - t0}, measure_only)
+    if REPEATS_DIFFERED:
+        print(f"chip_smoke: two runs on the same inputs differed: {REPEATS_DIFFERED}", file=sys.stderr)
+        return 1
 
     replaces = {
         "nomax": "rollingdepth_tpu/ops/flash_attention.py:103",

@@ -75,7 +75,9 @@ def initialize_distributed(device=None, timeout: datetime.timedelta = datetime.t
     if dist.is_initialized() or not any(v in os.environ for v in ENV_VARS):
         return None
     world, rank = _env_int("WORLD_SIZE", 1), _env_int("RANK", 0)
-    dev = resolve_device(local_device() if device is None else device)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = local_device()  # "cuda" names no card: this rank's own
     backend = choose_backend(dev)
     if dev.type == "cuda":
         # before any group or mesh: DeviceMesh would otherwise pick the

@@ -42,7 +42,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..aligner import AlignerConfig, DepthAligner
+from ..aligner import AlignerConfig, DepthAligner, frame_sum, frame_table
 from ..ops.quant import is_quantized, to_compute_dtype_
 from ..parallel.mesh import axis
 from ..parallel.sharding import gather_rows, row_block, shard_rows
@@ -408,13 +408,16 @@ class RollingDepthPipeline:
                 m = snippet_index_matrix(seq_len, snippet_len, gap + 1)
             start, stop = row_block(m.shape[0], self.mesh)
             idx = torch.as_tensor(m[start:stop], device=dev, dtype=torch.long)
-            acc = torch.zeros(depth.shape, device=dev, dtype=torch.float32)
+            rows = []
             for c in range(0, idx.shape[0], sb):
                 ic = idx[c : c + sb]
                 src = depth[ic]  # every window of a step reads the step's input
                 eps = self.unet(torch.cat([rgb_latent[ic], src], dim=-1), t, self.empty_text_embed)
                 prev = self.scheduler.step(eps.float(), t, src.float(), total_steps)[0]
-                acc.index_add_(0, ic.reshape(-1), prev.reshape((-1,) + prev.shape[2:]))
+                rows.append(prev.reshape((-1,) + prev.shape[2:]))
+            rows.append(torch.zeros((1,) + depth.shape[1:], device=dev))
+            table = torch.as_tensor(frame_table([m[start:stop]], seq_len)[0], device=dev)
+            acc = frame_sum(torch.cat(rows), table)  # this rank's windows, in the table's order
             if dp > 1:
                 dist.all_reduce(acc, group=dp_group)
             chunks["refine_unet"] = chunks.get("refine_unet", 0) + -(-idx.shape[0] // sb)

@@ -23,7 +23,9 @@ measurement:
 Prints the card's ``nvidia-smi`` name and power limit on stderr, and ONE
 JSON line ``{"metric", "value", "unit", "vs_baseline", ...}`` with the JAX
 bench's metric names (``depth_fps_768p_fast_1chip``, ``_w8a8``, ``_fp32``,
-``_refmerge``, ``_turbo``; ``_tiny`` with ``--tiny``).  ``vs_baseline`` is
+``_refmerge``, ``_turbo``; ``_tiny`` with ``--tiny``), and ``_stride{N}``
+for ``--stride`` N other than 1, which the JAX bench leaves out (it files
+a stride run under the stride-1 metric).  ``vs_baseline`` is
 the JAX bench's estimate of an RTX 3090 on the same workload
 (``flops_per_frame`` at 40% of 71 TFLOP/s).  ``--device cpu --tiny`` runs
 the tiny UNet and VAE on 32x16 frames on the host, to check the tool itself.
@@ -235,7 +237,8 @@ def main(argv=None) -> int:
     est_3090_fps = 71e12 * 0.40 / flops_per_frame(h, w, dilation_count=len(dilations), refine_step=refine_step)
     metric = "depth_fps_768p_fast_1chip" if args.mode == "fast" else f"depth_fps_{args.mode}_1chip"
     suffix = "".join(s for s, on in (("_w8a8", args.quantize), ("_fp32", args.fp32), ("_refmerge", args.ref_merge),
-                                     ("_turbo", args.turbo), ("_tiny", args.tiny)) if on)
+                                     ("_turbo", args.turbo), (f"_stride{args.stride}", args.stride != 1),
+                                     ("_tiny", args.tiny)) if on)
     result = {
         "metric": metric + suffix,
         "value": fps_device,
@@ -246,6 +249,7 @@ def main(argv=None) -> int:
         "overhead_s_per_clip": overhead_per_clip,
         "phase_timings_s": phase_timings,
         "frames": [n_frames, h, w],
+        "stride": args.stride,
         "setup_s": setup_s,
         "card": card,
         "torch": torch.__version__,

@@ -11,10 +11,11 @@ and runs its own pipeline on it.  The launcher then checks:
   (one process, no group, the same one CPU thread a worker has).
 Prints one JSON line ``{"ok": true, ...}`` on success.
 
-    python -m rollingdepth_torch.tools.multihost_demo [OUTDIR] [--device cpu|cuda]
+    python -m rollingdepth_torch.tools.multihost_demo [OUTDIR] [--device cuda|cpu]
 
-The pipeline is the tiny one of the CPU tests with weights from a seed; on
-the card (``--device cuda``) both workers share it over gloo.
+The pipeline is the tiny one of the CPU tests with weights from a seed.  It
+runs on the card unless ``--device cpu`` is given (``utils/device.py``: no
+card raises); on one card both workers share it over gloo.
 """
 
 from __future__ import annotations
@@ -71,9 +72,11 @@ def worker(rank: int, outdir: str, device: str) -> dict:
     return {"rank": rank, "clips": mine, "processes": process_count(), "primary": is_primary_host()}
 
 
-def launcher(outdir: str, device: str = "cpu") -> dict:
+def launcher(outdir: str, device=None) -> dict:
     from ..parallel.launch import run_ranks
+    from ..utils.device import resolve_device
 
+    device = str(resolve_device(device))
     os.makedirs(outdir, exist_ok=True)
     manifests = run_ranks(worker, N_WORKERS, args=(outdir, device), device=device, threads=1, timeout=600)
     sets = [set(m["clips"]) for m in manifests]
@@ -108,7 +111,7 @@ def launcher(outdir: str, device: str = "cpu") -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("outdir", nargs="?", default=None)
-    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     if args.outdir is None:
         with tempfile.TemporaryDirectory() as tmp:

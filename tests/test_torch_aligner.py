@@ -4,7 +4,10 @@ Same snippet groups, fp32.  The solve is L1 with Adam: its gradient is a
 sign, so once the windows agree the iterates oscillate, and fp32 sum-order
 differences (``index_add_`` vs one-hot matmuls) then flip signs and the two
 solves part by O(lr) per step.  Up to 100 iterations they agree to 1e-5;
-the full 2000 are held to 2e-2 of the latent scale."""
+the full 2000 are held to 2e-2 of the latent scale.  The port's frame sums
+run in one fixed order (the solve's gather and reduction over the slots,
+``frame_sum`` in the merge; no atomic add): the merged output is bit-equal
+at 1 and 4 CPU threads, and no scatter-add is reached."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ from rollingdepth_torch.aligner import AlignerConfig, DepthAligner
 from rollingdepth_torch.pipelines.snippets import snippet_index_matrix
 from rollingdepth_tpu.aligner import AlignerConfig as JAlignerConfig
 from rollingdepth_tpu.aligner import DepthAligner as JDepthAligner
+from tests.test_torch_framesum import refuse_scatter_adds
 
 torch.set_num_threads(2)
 
@@ -76,8 +80,56 @@ def test_depth_path_with_inverse_term_matches_jax():
     np.testing.assert_allclose(b[3].numpy(), np.asarray(a[3]), rtol=1e-5, atol=1e-5)
 
 
+def test_windows_of_two_lengths_match_jax():
+    """Groups of windows of 3 and of 2 frames: the solve pads the shorter
+    group's views to 3 frames, rows that no target or loss reads."""
+    rng = np.random.default_rng(4)
+    idx = [snippet_index_matrix(10, 3, 1), snippet_index_matrix(10, 2, 3)]
+    base = rng.standard_normal((10, 16, 16, 4)).astype(np.float32)
+    groups = [(base[m] * (1.0 + 0.2 * rng.standard_normal((m.shape[0], 1, 1, 1, 1)))
+               + 0.3 * rng.standard_normal(m.shape + (16, 16, 4))).astype(np.float32) for m in idx]
+    a, b = _run_both(dict(factor=3, depth_loss_weight=0.0, num_iterations=30), idx, groups, 10,
+                     restore_shift=True, channels_last=True)
+    np.testing.assert_allclose(b[0].numpy(), np.asarray(a[0]), rtol=1e-5, atol=1e-5)
+    for sa, sb in zip(a[1] + a[2], b[1] + b[2]):
+        np.testing.assert_allclose(sb.numpy(), np.asarray(sa), rtol=1e-5, atol=1e-5)
+
+
 def test_mismatched_index_matrix_raises():
     idx, groups = _groups()
     with pytest.raises(ValueError):
         DepthAligner(AlignerConfig(num_iterations=1)).run(
             [torch.from_numpy(g) for g in groups], [1, 3], index_mats=idx[::-1], seq_len=10)
+
+
+def _run_port(groups, idx, n_frames, **kw):
+    cfg = AlignerConfig(**kw)
+    return DepthAligner(cfg).run([torch.from_numpy(g) for g in groups], [1, 3], index_mats=idx, seq_len=n_frames,
+                                 channels_last=True, restore_shift=True)
+
+
+def test_merged_output_is_the_same_at_1_and_4_threads():
+    """Frames of 64x64x4: the merge's gathers and adds run on several
+    threads; the solve's view (factor 10) stays small."""
+    rng = np.random.default_rng(3)
+    idx = [snippet_index_matrix(12, 3, d) for d in (1, 3)]
+    base = rng.standard_normal((12, 64, 64, 4)).astype(np.float32)
+    groups = [(base[m] + 0.3 * rng.standard_normal(m.shape + (64, 64, 4))).astype(np.float32) for m in idx]
+    threads = torch.get_num_threads()
+    try:
+        runs = []
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            runs.append(_run_port(groups, idx, 12, factor=10, depth_loss_weight=0.0, num_iterations=30))
+    finally:
+        torch.set_num_threads(threads)
+    flat = [[merged, *scales, *shifts, history] for merged, scales, shifts, history in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
+
+
+@pytest.mark.parametrize("depth_loss_weight", [0.0, 1.0])
+def test_no_scatter_add_is_reached(monkeypatch, depth_loss_weight):
+    refuse_scatter_adds(monkeypatch)
+    idx, groups = _groups(positive=True)
+    merged = _run_port(groups, idx, 10, factor=3, depth_loss_weight=depth_loss_weight, num_iterations=3)[0]
+    assert merged.shape == (10, 16, 16, 4) and torch.isfinite(merged).all()

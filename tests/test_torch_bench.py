@@ -1,6 +1,7 @@
 """``rollingdepth_torch/tools/bench.py`` on the CPU at a tiny size: one
-parseable JSON line with the JAX bench's metric names, and its FLOP model
-equal to the JAX bench's."""
+parseable JSON line with the JAX bench's metric names (and ``_stride{N}``
+for a stride run, which the JAX bench leaves out), and its FLOP model equal
+to the JAX bench's."""
 
 import importlib.util
 import json
@@ -18,7 +19,8 @@ TINY = ["6", "1", "--device", "cpu", "--tiny", "--sb", "4", "--vb", "4"]
 @pytest.mark.parametrize("extra, metric", [([], "depth_fps_768p_fast_1chip_tiny"),
                                            (["--quantize"], "depth_fps_768p_fast_1chip_w8a8_tiny"),
                                            (["--mode", "full", "--quantize", "w8a8", "--fp32"],
-                                            "depth_fps_full_1chip_w8a8_fp32_tiny")])
+                                            "depth_fps_full_1chip_w8a8_fp32_tiny"),
+                                           (["--stride", "2"], "depth_fps_768p_fast_1chip_stride2_tiny")])
 def test_prints_one_json_line(capsys, extra, metric):
     torch.set_num_threads(2)
     assert tbench.main(TINY + extra) == 0
@@ -27,6 +29,7 @@ def test_prints_one_json_line(capsys, extra, metric):
     result = json.loads(lines[0])
     assert result["metric"] == metric and result["unit"] == "frames/sec" and result["card"] == "cpu"
     assert result["value"] > 0 and result["vs_baseline"] > 0 and result["fps_upload_inclusive"] > 0
+    assert result["stride"] == (int(extra[extra.index("--stride") + 1]) if "--stride" in extra else 1)
 
 
 def test_flops_model_is_the_jax_benchs(monkeypatch, tmp_path):

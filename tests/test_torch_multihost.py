@@ -1,12 +1,14 @@
 """Clip round-robin across processes (``parallel/multihost.py``), executed.
 
 - ``tools/multihost_demo.py``: 2 gloo worker processes over 5 clips, each
-  output equal, bit for bit, to a single-process run of its clip;
+  output equal, bit for bit, to a single-process run of its clip; without a
+  device it takes the card, and raises without one;
 - ``python -m rollingdepth_torch.cli`` as 2 ranks over 3 clips with
   ``--device cpu``: each rank writes a disjoint set of clips, together every
   clip, and each output equals a single-process run's bit for bit (one CPU
   thread on both sides);
-- the backend and device choice without ranks;
+- the backend and device choice without ranks, and ``"cuda"`` without an
+  index joining on the rank's own card;
 - ``parallel/launch.py``: a rank that raises, or ranks that outlast their
   timeout, end every rank and raise in the caller.
 Every spawn has its own timeout (``parallel/launch.py``).
@@ -26,12 +28,23 @@ from tests.test_torch_cli import checkpoint as checkpoint  # noqa: F401  (the mo
 
 
 def test_multihost_demo(tmp_path):
-    result = multihost_demo.launcher(str(tmp_path / "mh"))
+    result = multihost_demo.launcher(str(tmp_path / "mh"), device="cpu")
     assert result["ok"] and result["n_processes"] == 2
     assert sorted(sum(result["clips_per_worker"], [])) == list(range(multihost_demo.N_CLIPS))
     assert result["clips_per_worker"] == [[0, 2, 4], [1, 3]]
     assert len(result["numerics_check"]) == 5
     assert all(c["max_err_vs_single"] == 0.0 for c in result["numerics_check"])
+
+
+def test_multihost_demo_without_a_device_needs_a_card(monkeypatch, tmp_path):
+    """No ``device``: the card, as every entry point; without one it raises
+    before it starts a worker."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="none is available"):
+        multihost_demo.launcher(str(tmp_path / "mh"))
+    with pytest.raises(RuntimeError, match="none is available"):
+        multihost_demo.main([str(tmp_path / "mh")])
+    assert not (tmp_path / "mh").exists()
 
 
 @pytest.fixture(scope="module")
@@ -95,6 +108,27 @@ def test_backend_and_device_choice(monkeypatch):
     monkeypatch.setenv("LOCAL_RANK", "6")
     assert multihost.local_device() == torch.device("cuda:2")
     assert tcli.resolve_args(["-i", "x.mp4", "-o", "out"])[0].device == "cuda:2"
+
+
+def test_bare_cuda_joins_on_this_ranks_card(monkeypatch):
+    """``initialize_distributed(device="cuda")`` names no card: it sets this
+    rank's own (``local_device``), as without a device, instead of passing
+    an index-less device to ``torch.cuda.set_device``, which refuses it."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("set_device", torch.device(d))))
+    monkeypatch.setattr(torch.cuda, "init", lambda: None)
+    monkeypatch.setattr(multihost.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(multihost.dist, "init_process_group", lambda backend, **kw: calls.append(("init", backend)))
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    for device in ("cuda", None):
+        calls.clear()
+        assert multihost.initialize_distributed(device=device) == "nccl"
+        assert calls == [("set_device", torch.device("cuda:1")), ("init", "nccl")]
 
 
 def test_failed_rank_ends_every_rank():

@@ -1,4 +1,4 @@
-"""CPU tests of chip_smoke.py's check of a kernel against its plain version.
+"""CPU tests of chip_smoke.py's check of a kernel against its plain version, and of its repeat check.
 
 The mean bound must pass bf16 rounding noise, and the fp32 max bound fp32
 rounding noise, and each must fail an output that lacks one tile of work: a key tile of attention, which the max bound alone can
@@ -317,3 +317,31 @@ def test_params_within_allows_a_sign_flip_only():
         cs.params_within("far", {"a": got["a"], "b": ref["b"] + 3 * lr}, ref, lr)
     with pytest.raises(AssertionError, match="names"):
         cs.params_within("missing", {"a": got["a"]}, ref, lr)
+
+
+@pytest.mark.parametrize("kind", ["tensor", "array"])
+def test_held_equal_passes_bits_and_refuses_one_ulp(capsys, kind):
+    """The repeat check logs its counts and holds two runs bit for bit: one
+    element one ulp apart fails it, which any tolerance would pass."""
+    a = np.random.default_rng(0).standard_normal((4, 1, 8, 8)).astype(np.float32)
+    b = a.copy()
+    b[1, 0, 2, 3] = np.nextafter(b[1, 0, 2, 3], np.float32(np.inf))
+    wrap = torch.from_numpy if kind == "tensor" else np.asarray
+    cs.held_equal("same", wrap(a), wrap(a.copy()), 0.5)
+    logged = capsys.readouterr().out
+    assert '"path": "same"' in logged and '"elements": 256' in logged and '"differ": 0' in logged
+    with pytest.raises(AssertionError, match="differ"):
+        cs.held_equal("ulp", wrap(a), wrap(b), 0.0)
+    assert '"differ": 1' in capsys.readouterr().out
+
+
+def test_measure_repeats_logs_a_difference_and_goes_on(capsys, monkeypatch):
+    """With ``--measure-repeats`` a differing pair is logged and noted, not raised."""
+    monkeypatch.setattr(cs, "REPEATS_DIFFERED", [])
+    a = np.zeros((2, 3), np.float32)
+    b = a.copy()
+    b[0, 1] = 0.25
+    cs.held_equal("same", a, a.copy(), 0.0, measure_only=True)
+    cs.held_equal("apart", a, b, 0.0, measure_only=True)
+    assert cs.REPEATS_DIFFERED == ["apart"]
+    assert '"path": "apart"' in capsys.readouterr().out
