@@ -106,6 +106,17 @@ repeat  two runs of each serving path on the same frames, weights and seed
            goes on (to measure a tree whose runs differ, such as an older
            commit's package); the script then exits 1 before its ``kernels``
            line.
+solve_graph each path's co-alignment solve runs as one captured CUDA graph
+           a shape, replayed (``aligner._Solve``): for ``fast`` (the latent
+           solve of the timed call, whose warm-up took the one capture),
+           ``paper`` (the depth-space solve, captured in its call) and
+           relight's R channel (its call's three channel solves share one
+           capture), the solve again from the call's recorded inputs as a
+           replay and as the same step run eagerly, bit for bit; logged with
+           the captures counted, the graph pool's bytes and both solves'
+           seconds; then one ``fast`` call under ``torch.profiler``, whose
+           phases' device idle shares (``coalign`` among them) come from
+           ``tools/profile_fast_path.device_shares``.
 In main, full, paper, relight and train the kernel launch counts must
 equal what the chunk and step counts imply (``attention_kernel_launches``,
 ``relight_kernel_launches``, ``train_kernel_launches``); the depth must be
@@ -200,6 +211,109 @@ def held_equal(path: str, a, b, seconds_added: float, measure_only: bool = False
     (elements, how many differ, max and mean |difference|, and ``extra``,
     such as each run's coalign seconds), then bit for bit or raise."""
     repeat_verdict({"path": path, **diff_stats(a, b), "seconds_added": seconds_added, **extra}, measure_only)
+
+
+@contextlib.contextmanager
+def solve_probe():
+    """Records what the co-alignment solves do meanwhile: each
+    ``DepthAligner.run`` call's config and arguments (``calls``), the
+    ``_Solve`` that ran each solve (``solves``), and the captures taken
+    (``captures``, read when the block ends)."""
+    from rollingdepth_torch import aligner
+
+    probe = {"calls": [], "solves": []}
+    captured = lambda: sum(e.captures for e in aligner._SOLVES.values())  # noqa: E731
+    run, solve_run, before = aligner.DepthAligner.run, aligner._Solve.run, captured()
+
+    def recording_run(self, *args, **kwargs):
+        probe["calls"].append((self.config, args, kwargs))
+        return run(self, *args, **kwargs)
+
+    def recording_solve_run(self, graph):
+        probe["solves"].append(self)
+        return solve_run(self, graph)
+
+    aligner.DepthAligner.run, aligner._Solve.run = recording_run, recording_solve_run
+    try:
+        yield probe
+    finally:
+        aligner.DepthAligner.run, aligner._Solve.run = run, solve_run
+        probe["captures"] = captured() - before
+
+
+@contextlib.contextmanager
+def eager_solves():
+    """Every solve as the same step run eagerly, ``_optimize(graph=False)``."""
+    from rollingdepth_torch.aligner import DepthAligner
+
+    optimize = DepthAligner._optimize
+    DepthAligner._optimize = lambda self, *a, **kw: optimize(self, *a, graph=False, **kw)
+    try:
+        yield
+    finally:
+        DepthAligner._optimize = optimize
+
+
+def solve_graph_check(torch, path: str, probe: dict, want_captures: int, smi: str) -> dict:
+    """The first solve of a path's call (``probe``), again from its recorded
+    inputs: the captured graph's solve (a replay) and the same step
+    run eagerly, bit for bit (merged output, scales, shifts, history); each
+    timed to the card's end.  The call must have taken ``want_captures``
+    captures and the replay none.  Logs and returns the record: the call's
+    solves and captures, the graph pool's bytes, the solves' seconds."""
+    from rollingdepth_torch import aligner
+
+    cfg, args, kwargs = probe["calls"][0]
+    outs, seconds = {}, {}
+    for mode in ("graph", "eager"):
+        with solve_probe() as rerun, (eager_solves() if mode == "eager" else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            merged, scales, shifts, history = aligner.DepthAligner(cfg).run(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[mode] = time.perf_counter() - t0
+        outs[mode] = [merged, *scales, *shifts, history]
+        if mode == "graph":
+            replays, entry = rerun["captures"], rerun["solves"][0]
+    equal = all(torch.equal(a, b) for a, b in zip(outs["graph"], outs["eager"]))
+    record = {"phase": "solve_graph", "path": path, "views": [list(v.shape) for v in args[0]],
+              "iterations": cfg.num_iterations, "solves_in_call": len(probe["calls"]),
+              "captures_in_call": probe["captures"], "captures_in_replay": replays,
+              "graphs_cached": len(aligner._SOLVES), "pool_bytes": entry.pool_bytes,
+              "pool_bytes_all_graphs": sum(e.pool_bytes for e in aligner._SOLVES.values()),
+              "graph_s": seconds["graph"], "eager_s": seconds["eager"],
+              "elements": sum(x.numel() for x in outs["graph"]),
+              "differ": sum(int((a != b).sum()) for a, b in zip(outs["graph"], outs["eager"])), "equal": equal,
+              "card": smi}
+    log(record)
+    if not equal:
+        raise AssertionError(f"{path}: the graph's solve and the eager steps differ: {record}")
+    if probe["captures"] != want_captures or replays != 0 or entry.captures != 1:
+        raise AssertionError(f"{path}: captures {probe['captures']} in the call (want {want_captures}), "
+                             f"{replays} in the replay (want 0), {entry.captures} for its shape (want 1)")
+    return record
+
+
+def coalign_idle_share(torch, run, smi: str) -> dict:
+    """One call under ``torch.profiler`` (CPU and CUDA): each phase's host
+    time, device busy time and idle share, as ``tools/profile_fast_path.py``
+    reads them; logs and returns the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rollingdepth_torch.tools.profile_fast_path import device_shares
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    profiled_s = time.perf_counter() - t0
+    phases, call, kernels = device_shares(prof.events())
+    record = {"phase": "coalign_profile", "path": "fast", "profiled_s": profiled_s, "phases": phases, "call": call,
+              "kernels": len(kernels), "seconds": time.perf_counter() - t0, "card": smi}
+    log(record)
+    if not kernels or "coalign" not in phases:
+        raise AssertionError(f"the profiler saw no kernel or no coalign span: {record}")
+    return record
 
 
 def kernel_calls(attn, cfg, n: int, h: int, w: int, tp: int = 1) -> list:
@@ -613,8 +727,9 @@ def relight_phase(torch, attn, fa, gen, smi, measure_only: bool):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
-    out = pipe.forward(fg, bg, verbose=True, **RELIGHT_CALL)
-    torch.cuda.synchronize()
+    with solve_probe() as probe:
+        out = pipe.forward(fg, bg, verbose=True, **RELIGHT_CALL)
+        torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
     chunks = dict(pipe.last_chunks)
@@ -625,6 +740,11 @@ def relight_phase(torch, attn, fa, gen, smi, measure_only: bool):
     log({"phase": "relight", "frames": n, "res": list(RELIGHT_RES[1:]), "warmup_frames": 6, "warmup_s": warm_s,
          "total_s": total_s, "fps": n / total_s, "timings_s": pipe.last_timings, "chunks": chunks,
          "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+    # the three channel solves: one capture (24 frames is a new shape), then R's solve again, graph against eager
+    if len(probe["calls"]) != 3:
+        raise AssertionError(f"relight: {len(probe['calls'])} solves, not one a channel")
+    solve_graph_check(torch, "relight_r", probe, 1, smi)
+    del probe
 
     # one 12-channel UNet chunk (8 windows of 3 frames, the prompt pair's
     # 154 tokens), kernels against the plain attention path, bf16: 5e-2 of the output scale
@@ -962,18 +1082,24 @@ PAR_PARAMS_TOL = 1e-5
 
 
 def _free_card(torch) -> dict:
-    """Free what this process holds cached on the card, cuBLAS's workspaces
-    too (a live block pins its whole cached segment); returns what it still
-    holds, and the card's memory in use (all processes)."""
+    """Free what this process holds cached on the card: cuBLAS's workspaces
+    too (a live block pins its whole cached segment) and the captured
+    solves' graphs with their pools (a later solve captures again); returns
+    what it still holds, the pools it freed, and the card's memory in use
+    (all processes)."""
     import gc
 
+    from rollingdepth_torch import aligner
+
+    pools = sum(e.pool_bytes for e in aligner._SOLVES.values())
+    aligner._SOLVES.clear()
     gc.collect()
     torch._C._cuda_clearCublasWorkspaces()  # cuBLAS keeps its workspaces in the caching allocator
     torch.cuda.empty_cache()
     used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
                           capture_output=True, text=True).stdout.strip()
     return {"allocated_gb": torch.cuda.memory_allocated() / 2**30, "reserved_gb": torch.cuda.memory_reserved() / 2**30,
-            "card_used_mib": used}
+            "card_used_mib": used, "solve_graph_pools_freed_gb": pools / 2**30}
 
 
 def _max_err(torch, got, ref) -> dict:
@@ -1291,16 +1417,18 @@ def main(argv=None) -> int:
     fast = FAST_PRESET
 
     t0 = time.perf_counter()
-    warm = pipe(input_frames=frames, verbose=True, **fast).depth_pred
-    torch.cuda.synchronize()
+    with solve_probe() as warm_probe:
+        warm = pipe(input_frames=frames, verbose=True, **fast).depth_pred
+        torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     warm_coalign = pipe.last_timings["coalign"]
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
-    out = pipe(input_frames=frames, verbose=True, **fast)
-    torch.cuda.synchronize()
+    with solve_probe() as fast_probe:
+        out = pipe(input_frames=frames, verbose=True, **fast)
+        torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
     chunks = dict(pipe.last_chunks)
@@ -1311,10 +1439,17 @@ def main(argv=None) -> int:
         raise AssertionError(f"launches {launches} != {want} implied by chunks {chunks}")
     log({"phase": "main", "frames": n_frames, "res": [height, width], "warmup_s": warm_s, "total_s": total_s,
          "fps": n_frames / total_s, "timings_s": pipe.last_timings, "chunks": chunks, "launches": launches,
+         "solve_captures": [warm_probe["captures"], fast_probe["captures"]],
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     held_equal("fast", warm, out.depth_pred, 0.0, measure_only,  # the warm-up is the same call
                coalign_s=[warm_coalign, pipe.last_timings["coalign"]])
     del warm
+    # the latent solve: the warm-up captured it, the timed call replayed it
+    if warm_probe["captures"] != 1:
+        raise AssertionError(f"fast: the warm-up took {warm_probe['captures']} captures, not 1")
+    solve_graph_check(torch, "fast", fast_probe, 0, smi)
+    del warm_probe, fast_probe
+    coalign_idle_share(torch, lambda: pipe(input_frames=frames, **fast), smi)
 
     # ---- the W8A8 serving mode on the same frames and noise
     t0 = time.perf_counter()
@@ -1431,8 +1566,9 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
-    out_p = pipe32(input_frames=paper_frames, verbose=True, **PAPER_PRESET)
-    torch.cuda.synchronize()
+    with solve_probe() as paper_probe:
+        out_p = pipe32(input_frames=paper_frames, verbose=True, **PAPER_PRESET)
+        torch.cuda.synchronize()
     paper_s = time.perf_counter() - t0
     launches_p = {fn.__name__: fn.launches for fn in fa.KERNELS}
     chunks_p = dict(pipe32.last_chunks)
@@ -1461,7 +1597,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         solve_s.append(time.perf_counter() - t1)
     held_equal("paper_solve", *merged, time.perf_counter() - t0, measure_only, coalign_s=solve_s)
-    del pipe32, paper_frames, out_p, merged
+    del merged
+    solve_graph_check(torch, "paper", paper_probe, 1, smi)  # the depth-space solve, first of its shape
+    del pipe32, paper_frames, out_p, paper_probe
 
     # ---- the relight path at 720x640, full SD1.5 width
     t0 = time.perf_counter()

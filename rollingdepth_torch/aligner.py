@@ -15,15 +15,20 @@ Every sum of windows into frames runs in an order fixed on the host
 (``frame_table``), as the JAX package's one-hot sums do: no atomic add, so
 a call gives the same bits on every run.  The solve sums each target with
 one [T, K, P] gather and a reduction over the K slots; the merge and
-refinement, at full resolution, slot by slot (``frame_sum``).  The loop
-does no host sync: the loss history is written into a preallocated device
-tensor.
+refinement, at full resolution, slot by slot (``frame_sum``).
+
+The Adam step is optax's ``adam`` written out in tensor ops
+(``adam_update_``) and reads only device tensors built before the solve,
+the step count and the loss history included.  On the card it is captured
+once per shape as a CUDA graph and replayed ``num_iterations`` times, as the
+JAX package runs the whole solve as one jitted ``lax.scan`` cached per shape
+(``_SOLVES``); on the CPU the same step runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +86,176 @@ def frame_sum(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.5, 0.9, 1e-8  # the JAX package's optax.adam(lr, b1=0.5, b2=0.9, eps=1e-8)
+WARMUP_STEPS = 3  # eager steps on a side stream before a capture, as PyTorch's whole-network capture asks
+
+# Captured solves, shared by every DepthAligner as the JAX package's
+# _SOLVE_CACHE shares its jitted scans (each caller builds a new aligner):
+# solve_key -> _Solve.  Unbounded, as JAX's is: a graph pool a shape.
+_SOLVES: Dict[tuple, "_Solve"] = {}
+
+
+def adam_update_(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                 count: torch.Tensor, lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
+                 eps: float = ADAM_EPS) -> None:
+    """``optax.adam(lr, b1, b2, eps)``'s update of ``params`` in place, in
+    ``optax.scale_by_adam``'s order and from device tensors only, so that a
+    CUDA graph can hold it: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2
+    + b2 nu``, ``count += 1`` (a one-element integer tensor), the bias
+    corrections ``1 - b**count`` in the parameters' dtype from the device
+    count, then ``params -= lr * mu_hat / (sqrt(nu_hat) + eps)``."""
+    mu.mul_(b1).add_(grads * (1 - b1))
+    nu.mul_(b2).add_(grads * grads * (1 - b2))
+    count.add_(1)
+    c = count.to(params.dtype)
+    update = (mu / (1 - b1**c)) / ((nu / (1 - b2**c)).sqrt() + eps)
+    params.sub_(update * lr)
+
+
+def solve_key(view_shapes, table_shape, masked: bool, cfg: AlignerConfig, device) -> tuple:
+    """What a captured solve is specific to: the views' shapes, the frame
+    table's shape and whether it has empty slots, the inverse term, the
+    config (the iterations included) and the device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return (tuple(tuple(s) for s in view_shapes), tuple(table_shape), masked, cfg.depth_loss_weight != 0.0, cfg,
+            device)
+
+
+class _Solve:
+    """One solve's static tensors and its step, for one ``solve_key``.
+    ``load`` writes a call's views and tables into the tensors; ``step`` runs
+    one Adam step on them and reads nothing else (no host sync, no tensor
+    made from the host), so that one capture serves every later solve of the
+    key."""
+
+    def __init__(self, key: tuple):
+        view_shapes, (n_frames, k), masked, self.use_inv, self.cfg, self.device = key
+        self.sizes = [s[0] for s in view_shapes]
+        self.widths = [s[1] for s in view_shapes]
+        self.p_dim = view_shapes[0][-1]
+        self.bounds = np.concatenate([[0], np.cumsum(self.sizes)])
+        self.denom = float(sum(self.widths) * n_frames * self.p_dim)
+        dev, n_all = self.device, sum(self.sizes)
+        self.v_all = torch.zeros((n_all, max(self.widths), self.p_dim), device=dev)
+        self.rows = torch.zeros((n_frames, k), dtype=torch.long, device=dev)
+        self.keep = torch.ones((n_frames, k, 1), device=dev) if masked else None
+        self.idx = [torch.zeros(s * w, dtype=torch.long, device=dev) for s, w in zip(self.sizes, self.widths)]
+        self.cnt = torch.ones((n_frames, 1), device=dev)
+        self.covered = torch.ones((n_frames, 1), dtype=torch.bool, device=dev)
+        self.params = torch.zeros((2, n_all), device=dev)  # every window's s, then its t
+        self.mu, self.nu = torch.zeros_like(self.params), torch.zeros_like(self.params)
+        self.count = torch.zeros(1, dtype=torch.long, device=dev)
+        self.history = torch.zeros((self.cfg.num_iterations, 3), device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captures = 0
+        self.pool_bytes = 0  # the captured graph's private memory pool
+
+    def load(self, views, rows: np.ndarray, keep: np.ndarray, idx, counts: torch.Tensor) -> None:
+        self.v_all.zero_()
+        for v, lo in zip(views, self.bounds[:-1]):
+            self.v_all[lo : lo + v.shape[0], : v.shape[1]] = v
+        self.rows.copy_(torch.from_numpy(rows))
+        if self.keep is not None:
+            self.keep.copy_(torch.from_numpy(keep)[..., None])
+        for dst, src in zip(self.idx, idx):
+            dst.copy_(src)
+        self.cnt.copy_(counts.clamp(min=1.0)[:, None])
+        self.covered.copy_((counts > 0)[:, None])
+
+    def reset(self) -> None:
+        """s = 1, t = 0, the moments, the step count and the history 0."""
+        self.params[0] = 1.0
+        self.params[1] = 0.0
+        for x in (self.mu, self.nu, self.count, self.history):
+            x.zero_()
+
+    def run(self, graph: bool) -> None:
+        """``num_iterations`` steps from the reset state: replays of the
+        captured step (captured at the first run), or eager steps."""
+        if not graph:
+            self.reset()
+            for _ in range(self.cfg.num_iterations):
+                self.step()
+            return
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture()
+            self.reset()
+            for _ in range(self.cfg.num_iterations):
+                self.graph.replay()
+
+    def _capture(self) -> None:
+        """Warm the step up on a side stream, then capture one step.  Other
+        threads may use the card meanwhile (the CLI's save pool copies the
+        last clip to the host): ``thread_local`` refuses unsafe calls only
+        from this thread."""
+        self.reset()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(min(WARMUP_STEPS, self.cfg.num_iterations)):
+                self.step()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # as the capture does first; here so that the pool's bytes can be read
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.step()
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.graph = graph
+        self.captures += 1
+
+    @torch.enable_grad()  # callers may run under no_grad (the pipelines do)
+    def step(self) -> None:
+        """One Adam step of the solve on the static tensors."""
+        cfg, bounds, widths, p_dim, use_inv = self.cfg, self.bounds, self.widths, self.p_dim, self.use_inv
+        params = self.params.detach().requires_grad_()
+        s_all, t_all = params[0], params[1]
+
+        def frame_mean(a):
+            g = a.reshape(-1, p_dim)[self.rows]
+            return (g if self.keep is None else g * self.keep).sum(1) / self.cnt
+
+        s_list = [s_all[bounds[i] : bounds[i + 1]] for i in range(len(widths))]
+        t_list = [t_all[bounds[i] : bounds[i + 1]] for i in range(len(widths))]
+        a_all = self.v_all * s_all[:, None, None] + t_all[:, None, None]
+        inv_all = a_all.clamp(min=1e-3) ** -1 if use_inv else None
+        a_list = [a_all[bounds[i] : bounds[i + 1], :w] for i, w in enumerate(widths)]
+        inv_list = [inv_all[bounds[i] : bounds[i + 1], :w] for i, w in enumerate(widths)] if use_inv else []
+        with torch.no_grad():  # the per-frame targets are detached
+            target = frame_mean(a_all)
+            scale = target.abs().mean(-1, keepdim=True)
+            if use_inv:
+                target_inv = frame_mean(inv_all)
+                scale_inv = target_inv.abs().mean(-1, keepdim=True)
+        loss_m = 0.0
+        loss_inv = 0.0
+        for gi, (a, i) in enumerate(zip(a_list, self.idx)):
+            shape = a.shape
+            tgt = target[i].reshape(shape)
+            sc = scale[i].reshape(shape[:2] + (1,)).clamp(min=1e-12)
+            loss_m = loss_m + ((a - tgt) / sc).abs().sum()
+            if use_inv:
+                tgt_inv = target_inv[i].reshape(shape)
+                sc_inv = scale_inv[i].reshape(shape[:2] + (1,)).clamp(min=1e-12)
+                loss_inv = loss_inv + ((inv_list[gi] - tgt_inv) / sc_inv).abs().sum()
+        loss = loss_m / self.denom + cfg.depth_loss_weight * (loss_inv / self.denom)
+        soft = 0.0
+        for s, t in zip(s_list, t_list):
+            soft = soft + cfg.lmda2 * torch.relu(1.0 - s).pow(2).sum() / s.shape[0]
+            soft = soft + cfg.lmda3 * t.pow(2).sum() / t.shape[0]
+        total = cfg.loss_scale * loss + soft
+        (grads,) = torch.autograd.grad(total, params)
+        with torch.no_grad():
+            row = torch.stack([total.detach(), torch.where(self.covered, target, torch.inf).amin(),
+                               torch.where(self.covered, target, -torch.inf).amax()])
+            self.history.index_copy_(0, self.count, row[None])  # at the device's step count
+            adam_update_(self.params, grads, self.mu, self.nu, self.count, cfg.lr)
+
+
 class DepthAligner:
     def __init__(self, config: AlignerConfig = AlignerConfig()):
         self.config = config
@@ -123,91 +298,48 @@ class DepthAligner:
             v = g[:, :, b:-b:f, b:-b:f, :] if channels_last else g[:, :, :, b:-b:f, b:-b:f]
             views.append((v.float() - mn).reshape(g.shape[0], g.shape[1], -1))
 
-        scales, shifts, history = self._optimize(views, idx, table, counts, seq_len)
+        scales, shifts, history = self._optimize(views, idx, table, counts)
         merged = self._merge(snippet_ls, torch.as_tensor(table, device=dev), counts, scales, shifts, mn,
                              restore_shift, seq_len)
         return merged, scales, shifts, history
 
-    @torch.enable_grad()  # callers may run under no_grad (the pipeline does)
-    def _optimize(self, views, idx, table: np.ndarray, counts, seq_len: int):
-        """The views go into one [n_windows, w_max, P] tensor before the loop
-        (a shorter group's missing frames are zero rows that nothing reads),
-        so each step applies (s, t) once.  Each target is ``a[rows].sum(1)``
-        over the table's [T, K] rows: one gather, then one reduction over K
-        (PyTorch's, with no atomic add: its order is fixed by the shape and
-        the device), with an empty slot's row masked to zero."""
+    def _optimize(self, views, idx, table: np.ndarray, counts, graph: bool = True):
+        """The views go into one [n_windows, w_max, P] tensor (a shorter
+        group's missing frames are zero rows that nothing reads), so each
+        step applies (s, t) once.  Each target is ``a[rows].sum(1)`` over the
+        table's [T, K] rows: one gather, then one reduction over K (PyTorch's,
+        with no atomic add: its order is fixed by the shape and the device),
+        with an empty slot's row masked to zero.
+
+        Everything that reads the host (the row table, its mask, the frame
+        indices) is built here; ``_Solve.step`` touches only device tensors.
+        On the card the step is captured once per ``solve_key`` as a CUDA
+        graph and replayed ``num_iterations`` times, the counterpart of the
+        JAX package's one jitted ``lax.scan``; ``graph=False`` runs the same
+        step eagerly (the card's tests and ``chip_smoke.py`` hold the two
+        bit for bit).  On the CPU the step always runs eagerly."""
         cfg = self.config
         dev = views[0].device
         sizes = [v.shape[0] for v in views]
-        widths = [v.shape[1] for v in views]
-        p_dim = views[0].shape[-1]
-        n_all, w_max = sum(sizes), max(widths)
+        w_max = max(v.shape[1] for v in views)
         bounds = np.concatenate([[0], np.cumsum(sizes)])
-        v_all = torch.zeros((n_all, w_max, p_dim), device=dev)
-        for v, lo, hi in zip(views, bounds[:-1], bounds[1:]):
-            v_all[lo:hi, : v.shape[1]] = v
         # each window row of the table (groups flattened row-major, in order) at its place in v_all
         place = np.concatenate([((lo + np.arange(v.shape[0]))[:, None] * w_max + np.arange(v.shape[1])).reshape(-1)
                                 for v, lo in zip(views, bounds[:-1])])
         empty = table == place.size
-        rows = torch.as_tensor(np.append(place, 0)[table], device=dev)
-        keep = torch.as_tensor(~empty, device=dev, dtype=torch.float32)[..., None] if empty.any() else None
-
-        s_all = torch.ones(n_all, device=dev, requires_grad=True)
-        t_all = torch.zeros(n_all, device=dev, requires_grad=True)
-        opt = torch.optim.Adam([s_all, t_all], lr=cfg.lr, betas=(0.5, 0.9), eps=1e-8)
-        history = torch.empty((cfg.num_iterations, 3), device=dev)
-        use_inv = cfg.depth_loss_weight != 0.0
-        denom = float(sum(v.shape[1] for v in views) * seq_len * p_dim)
-        cnt = counts.clamp(min=1.0)[:, None]
-        covered = (counts > 0)[:, None]
-
-        def frame_mean(a):
-            g = a.reshape(-1, p_dim)[rows]
-            return (g if keep is None else g * keep).sum(1) / cnt
-
-        for it in range(cfg.num_iterations):
-            opt.zero_grad(set_to_none=True)
-            s_list = [s_all[bounds[i] : bounds[i + 1]] for i in range(len(views))]
-            t_list = [t_all[bounds[i] : bounds[i + 1]] for i in range(len(views))]
-            a_all = v_all * s_all[:, None, None] + t_all[:, None, None]
-            inv_all = a_all.clamp(min=1e-3) ** -1 if use_inv else None
-            a_list = [a_all[bounds[i] : bounds[i + 1], :w] for i, w in enumerate(widths)]
-            inv_list = [inv_all[bounds[i] : bounds[i + 1], :w] for i, w in enumerate(widths)] if use_inv else []
-            with torch.no_grad():  # the per-frame targets are detached
-                target = frame_mean(a_all)
-                scale = target.abs().mean(-1, keepdim=True)
-                if use_inv:
-                    target_inv = frame_mean(inv_all)
-                    scale_inv = target_inv.abs().mean(-1, keepdim=True)
-            loss_m = 0.0
-            loss_inv = 0.0
-            for gi, (a, i) in enumerate(zip(a_list, idx)):
-                shape = a.shape
-                tgt = target[i].reshape(shape)
-                sc = scale[i].reshape(shape[:2] + (1,)).clamp(min=1e-12)
-                loss_m = loss_m + ((a - tgt) / sc).abs().sum()
-                if use_inv:
-                    tgt_inv = target_inv[i].reshape(shape)
-                    sc_inv = scale_inv[i].reshape(shape[:2] + (1,)).clamp(min=1e-12)
-                    loss_inv = loss_inv + ((inv_list[gi] - tgt_inv) / sc_inv).abs().sum()
-            loss = loss_m / denom + cfg.depth_loss_weight * (loss_inv / denom)
-            soft = 0.0
-            for s, t in zip(s_list, t_list):
-                soft = soft + cfg.lmda2 * torch.relu(1.0 - s).pow(2).sum() / s.shape[0]
-                soft = soft + cfg.lmda3 * t.pow(2).sum() / t.shape[0]
-            total = cfg.loss_scale * loss + soft
-            total.backward()
-            opt.step()
-            with torch.no_grad():
-                history[it, 0] = total.detach()
-                history[it, 1] = torch.where(covered, target, torch.inf).amin()
-                history[it, 2] = torch.where(covered, target, -torch.inf).amax()
-
-        s_out = s_all.detach()
-        t_out = t_all.detach()
+        key = solve_key([tuple(v.shape) for v in views], table.shape, bool(empty.any()), cfg, dev)
+        graph = graph and dev.type == "cuda" and cfg.num_iterations > 0
+        solve = _SOLVES.get(key) if graph else None
+        if solve is None:
+            solve = _Solve(key)
+            if graph:
+                _SOLVES[key] = solve
+        solve.load(views, np.append(place, 0)[table], ~empty, idx, counts)
+        solve.run(graph)
+        # copies: a later solve of the same key overwrites the static tensors
+        s_out, t_out = solve.params.clone()
         return ([s_out[bounds[i] : bounds[i + 1]] for i in range(len(views))],
-                [t_out[bounds[i] : bounds[i + 1]] for i in range(len(views))], history)
+                [t_out[bounds[i] : bounds[i + 1]] for i in range(len(views))], solve.history.clone())
 
     @torch.no_grad()
     def _merge(self, snippet_ls, table, counts, scales, shifts, mn, restore_shift: bool, seq_len: int):

@@ -37,6 +37,43 @@ import sys
 import time
 
 
+def device_shares(events, prefixes=("rollingdepth.", "rollingimg.")):
+    """From a ``torch.profiler`` run's ``events()``: for each pipeline phase
+    span (``<prefix><phase>``) its host time, the device time covered by
+    kernels inside it and the device's idle share; the same over the whole
+    call (None without a span); and the kernel events."""
+    from torch.autograd import DeviceType
+
+    spans = {e.name: e.time_range for e in events if e.name.startswith(prefixes)}
+    # device-side copies of CPU ranges (record_function spans, the
+    # optimizer's step annotation) carry a CPU op's name; kernels do not
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in cpu_names]
+    merged = []  # union of kernel intervals, in case streams overlap
+    for lo, hi in sorted((k.time_range.start, k.time_range.end) for k in kernels):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+
+    def busy_us(a: float, b: float) -> float:
+        return sum(max(0.0, min(hi, b) - max(lo, a)) for lo, hi in merged)
+
+    phases = {}
+    for span, r in spans.items():
+        host_us = r.end - r.start
+        dev_us = busy_us(r.start, r.end)
+        phases[span.split(".", 1)[1]] = {"host_ms": host_us / 1e3, "device_busy_ms": dev_us / 1e3,
+                                         "idle_share": 1.0 - dev_us / host_us if host_us > 0 else None}
+    call = None
+    if spans:
+        a = min(r.start for r in spans.values())
+        b = max(r.end for r in spans.values())
+        call = {"host_ms": (b - a) / 1e3, "device_busy_ms": busy_us(a, b) / 1e3,
+                "idle_share": 1.0 - busy_us(a, b) / (b - a)}
+    return phases, call, kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", default="fast", choices=["fast", "fast1024", "full", "paper"])
@@ -48,7 +85,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -98,35 +134,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
     events = prof.events()
-    spans = {e.name: e.time_range for e in events if e.name.startswith(("rollingdepth.", "rollingimg."))}
-    # device-side copies of CPU ranges (record_function spans, the
-    # optimizer's step annotation) carry a CPU op's name; kernels do not
-    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in cpu_names]
-    merged = []  # union of kernel intervals, in case streams overlap
-    for lo, hi in sorted((k.time_range.start, k.time_range.end) for k in kernels):
-        if merged and lo <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], hi)
-        else:
-            merged.append([lo, hi])
-
-    def busy_us(a: float, b: float) -> float:
-        return sum(max(0.0, min(hi, b) - max(lo, a)) for lo, hi in merged)
-
+    phases, call, kernels = device_shares(events)
     result = {"card": smi, "preset": name, "frames": args.frames, "res": [height, width], "wall_s": wall_s,
               "warmup_wall_s": warmup_s, "profiled_wall_s": profiled_s, "attention": os.environ.get("ROLLINGDEPTH_ATTN", "auto"),
-              "device_kernels_seen": len(kernels), "phases": {}}
-    for span, r in spans.items():
-        host_us = r.end - r.start
-        dev_us = busy_us(r.start, r.end)
-        result["phases"][span.split(".", 1)[1]] = {
-            "host_ms": host_us / 1e3, "device_busy_ms": dev_us / 1e3,
-            "idle_share": 1.0 - dev_us / host_us if host_us > 0 else None}
-    if spans:
-        a = min(r.start for r in spans.values())
-        b = max(r.end for r in spans.values())
-        result["call"] = {"host_ms": (b - a) / 1e3, "device_busy_ms": busy_us(a, b) / 1e3,
-                          "idle_share": 1.0 - busy_us(a, b) / (b - a)}
+              "device_kernels_seen": len(kernels), "phases": phases}
+    if call is not None:
+        result["call"] = call
     by_name = {}
     for k in kernels:
         row = by_name.setdefault(k.name, [0, 0.0])

@@ -2,19 +2,28 @@
 
 Same snippet groups, fp32.  The solve is L1 with Adam: its gradient is a
 sign, so once the windows agree the iterates oscillate, and fp32 sum-order
-differences (``index_add_`` vs one-hot matmuls) then flip signs and the two
-solves part by O(lr) per step.  Up to 100 iterations they agree to 1e-5;
-the full 2000 are held to 2e-2 of the latent scale.  The port's frame sums
-run in one fixed order (the solve's gather and reduction over the slots,
-``frame_sum`` in the merge; no atomic add): the merged output is bit-equal
-at 1 and 4 CPU threads, and no scatter-add is reached."""
+differences (the port's ascending slot order against XLA's one-hot matmuls)
+then flip signs and the two solves part by O(lr) per step.  Up to 100
+iterations they agree to 1e-5; the full 2000 are held to 2e-2 of the latent
+scale.  The port's frame sums run in one fixed order (the solve's gather and
+reduction over the slots, ``frame_sum`` in the merge; no atomic add): the
+merged output is bit-equal at 1 and 4 CPU threads, and no scatter-add is
+reached.  The Adam step (``adam_update_``) is optax's ``adam`` bit for bit
+when optax runs op by op; under ``jax.jit`` XLA's fused CPU code rounds
+some of its products differently, by up to one fp32 ulp of a parameter a
+step."""
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
-from rollingdepth_torch.aligner import AlignerConfig, DepthAligner
+from rollingdepth_torch import aligner as port_aligner
+from rollingdepth_torch.aligner import AlignerConfig, DepthAligner, adam_update_, solve_key
 from rollingdepth_torch.pipelines.snippets import snippet_index_matrix
 from rollingdepth_tpu.aligner import AlignerConfig as JAlignerConfig
 from rollingdepth_tpu.aligner import DepthAligner as JDepthAligner
@@ -133,3 +142,92 @@ def test_no_scatter_add_is_reached(monkeypatch, depth_loss_weight):
     idx, groups = _groups(positive=True)
     merged = _run_port(groups, idx, 10, factor=3, depth_loss_weight=depth_loss_weight, num_iterations=3)[0]
     assert merged.shape == (10, 16, 16, 4) and torch.isfinite(merged).all()
+
+
+@pytest.mark.parametrize("mode", ["eager", "jit"])
+@pytest.mark.parametrize("steps", [1, 2, 5, 10])
+def test_adam_update_matches_optax(mode, steps):
+    """The same parameters and gradients (magnitudes 1e-6 to 10) through
+    ``optax.adam(1e-3, b1=0.5, b2=0.9, eps=1e-8)`` and ``adam_update_``:
+    op by op bit for bit (parameters, moments, count); jitted within 1e-6,
+    a thousandth of lr (XLA's fused products; 1.2e-7 seen at 10 steps)."""
+    rng = np.random.default_rng(steps)
+    p0 = rng.standard_normal((2, 300)).astype(np.float32)
+    grads = [(rng.standard_normal((2, 300)) * 10.0 ** rng.uniform(-6, 1, (2, 300))).astype(np.float32)
+             for _ in range(steps)]
+    opt = optax.adam(1e-3, b1=0.5, b2=0.9, eps=1e-8)
+
+    def update(p, state, g):
+        u, state = opt.update(g, state, p)
+        return optax.apply_updates(p, u), state
+
+    update = jax.jit(update) if mode == "jit" else update
+    p, state = jnp.asarray(p0), opt.init(jnp.asarray(p0))
+    tp = torch.from_numpy(p0.copy())
+    mu, nu, count = torch.zeros_like(tp), torch.zeros_like(tp), torch.zeros(1, dtype=torch.long)
+    for g in grads:
+        p, state = update(p, state, jnp.asarray(g))
+        adam_update_(tp, torch.from_numpy(g), mu, nu, count, 1e-3)
+    adam_state = state[0]
+    assert int(count) == int(adam_state.count) == steps
+    if mode == "eager":
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(p))
+        np.testing.assert_array_equal(mu.numpy(), np.asarray(adam_state.mu))
+        np.testing.assert_array_equal(nu.numpy(), np.asarray(adam_state.nu))
+    else:
+        np.testing.assert_allclose(tp.numpy(), np.asarray(p), rtol=0, atol=1e-6)
+
+
+def test_solve_key():
+    """One key for one shape set; a new key for another table shape, an
+    empty slot, the inverse term, another config or another device."""
+    views, table, cfg = [(20, 3, 48), (4, 3, 48)], (10, 6), AlignerConfig(factor=3, depth_loss_weight=0.0)
+    key = solve_key(views, table, False, cfg, "cuda:0")
+    assert key == solve_key([list(v) for v in views], np.zeros(table).shape, False, AlignerConfig(
+        factor=3, depth_loss_weight=0.0), torch.device("cuda", 0))
+    others = [solve_key(views, (10, 5), False, cfg, "cuda:0"), solve_key(views, table, True, cfg, "cuda:0"),
+              solve_key(views, table, False, dataclasses.replace(cfg, depth_loss_weight=1.0), "cuda:0"),
+              solve_key(views, table, False, dataclasses.replace(cfg, num_iterations=10), "cuda:0"),
+              solve_key(views, table, False, cfg, "cuda:1"), solve_key(views, table, False, cfg, "cpu"),
+              solve_key([(20, 3, 48), (5, 3, 48)], table, False, cfg, "cuda:0")]
+    assert len({key, *others}) == 1 + len(others)
+
+
+def test_zero_iterations_give_the_plain_average():
+    """No step: s = 1, t = 0, an empty history, and the merge is each
+    frame's mean over the windows that cover it."""
+    idx, groups = _groups()
+    merged, scales, shifts, history = _run_port(groups, idx, 10, factor=3, depth_loss_weight=0.0, num_iterations=0)
+    assert history.shape == (0, 3)
+    assert all(torch.equal(s, torch.ones_like(s)) for s in scales)
+    assert all(torch.equal(t, torch.zeros_like(t)) for t in shifts)
+    total, count = np.zeros((10, 16, 16, 4)), np.zeros(10)
+    for m, g in zip(idx, groups):
+        for w, frame in np.ndenumerate(m):
+            total[frame] += g[w]
+            count[frame] += 1
+    np.testing.assert_allclose(merged.numpy(), total / count[:, None, None, None], rtol=1e-6, atol=1e-6)
+    assert not port_aligner._SOLVES  # the CPU runs its steps eagerly and caches nothing
+
+
+def test_step_reads_nothing_from_the_host(monkeypatch):
+    """The step that the card captures makes no tensor from the host and
+    reads no value back."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the step reached the host")
+
+    step = port_aligner._Solve.step
+
+    def guarded(self):
+        with monkeypatch.context() as m:
+            for name in ("item", "tolist", "nonzero", "numpy", "__bool__"):
+                m.setattr(torch.Tensor, name, refuse)
+            for name in ("from_numpy", "as_tensor", "tensor", "nonzero"):
+                m.setattr(torch, name, refuse)
+            step(self)
+
+    monkeypatch.setattr(port_aligner._Solve, "step", guarded)
+    idx, groups = _groups(positive=True)
+    for weight in (0.0, 1.0):
+        merged = _run_port(groups, idx, 10, factor=3, depth_loss_weight=weight, num_iterations=3)[0]
+        assert torch.isfinite(merged).all()

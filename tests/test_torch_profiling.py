@@ -76,3 +76,30 @@ def test_a_failing_phase_still_writes_its_trace(monkeypatch, tmp_path):
         with timer.phase("broken"):
             raise ValueError("in the phase")
     assert (tmp_path / "broken.json").exists()
+
+
+def test_device_shares_counts_kernel_time_inside_each_span():
+    """Spans and kernels as ``torch.profiler`` gives them: a phase's busy
+    time is the union of the kernels inside it (overlaps once), clipped to
+    the span; a CPU range's device copy is not a kernel."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from rollingdepth_torch.tools.profile_fast_path import device_shares
+
+    def event(name, lo, hi, device=DeviceType.CUDA):
+        return SimpleNamespace(name=name, device_type=device, time_range=SimpleNamespace(start=lo, end=hi))
+
+    events = [event("rollingdepth.encode", 0, 100, DeviceType.CPU),
+              event("rollingdepth.coalign", 100, 1100, DeviceType.CPU),
+              event("rollingdepth.coalign", 100, 1100),  # the span's device copy
+              event("k1", 10, 60), event("k2", 40, 90), event("k3", 90, 120),
+              event("k4", 200, 250), event("k4", 600, 700)]
+    phases, call, kernels = device_shares(events)
+    assert len(kernels) == 5
+    assert phases["encode"] == {"host_ms": 0.1, "device_busy_ms": 0.09, "idle_share": pytest.approx(0.1)}
+    assert phases["coalign"]["device_busy_ms"] == pytest.approx(0.17)
+    assert phases["coalign"]["idle_share"] == pytest.approx(0.83)
+    assert call["host_ms"] == 1.1 and call["device_busy_ms"] == pytest.approx(0.26)
+    assert device_shares(events[3:])[1] is None
