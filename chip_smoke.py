@@ -25,6 +25,18 @@ Phases, each of which must pass or the script exits non-zero:
            with the launch counts from 0, then each variant against its
            plain version at [8, 15552, 5, 64] and a ragged [2, 3001, 5, 64]
            with L_k 2,999, with times as for the kernels;
+   groupnorm the bf16 GroupNorm pair (``ops/group_norm.py``, XLA's
+           reduction and loop fusion of the JAX norm and the silu after it,
+           written by hand): every distinct norm input of ``fast``,
+           ``full`` and relight chunks and ragged shapes (``NORM_SHAPES``)
+           through the public wrapper with the count from 0, then each
+           against its plain version: the bf16 rule, at least
+           ``NORM_EQUAL_SHARE`` of the elements bit-equal, the statistics
+           within ``NORM_STATS_TOL`` of ``torch.var_mean``'s (the statistics
+           without each image's last chunk must exceed it), two calls
+           bit-equal; with its time, the plain time, one ``F.group_norm``
+           call's time and the bound; an NCHW x and an autograd-recording
+           call must raise;
 3. main    the fast preset (dilations [1, 25], one DDIM step, latent-space
            merge, bf16, snippet_batch 8, max_vae_bs 4) on a synthetic
            60-frame 432x768 clip at full SD2 width with seeded random
@@ -119,7 +131,10 @@ solve_graph each path's co-alignment solve runs as one captured CUDA graph
            ``tools/profile_fast_path.device_shares``.
 In main, full, paper, relight and train the kernel launch counts must
 equal what the chunk and step counts imply (``attention_kernel_launches``,
-``relight_kernel_launches``, ``train_kernel_launches``); the depth must be
+``relight_kernel_launches``, ``train_kernel_launches``); in every bf16 call
+(main, w8a8, gate_closed, full, relight, the parallel ranks) the GroupNorm
+pair's launches must equal ``norm_kernel_launches`` and the plain norm run
+0 times, in fp32 (paper, train, the fp32 ranks) the pair none; the depth must be
 finite, of the clip's shape and within [-1, 1], and R/G/B within [0, 1].  The card's
 machine has no video decoder, so no phase reads a video: frames are made
 on the card.
@@ -127,7 +142,8 @@ on the card.
 Prints the card's name and power limit, a JSON line per measurement, a
 ``{"kernels": [...]}`` line (a row per kernel for each of the TPU kernels
 K1-K10; K9 has two, one per instantiation; K1 and K3 have a second row for
-their fp32 instantiation, the paper path's), and as its last line
+their fp32 instantiation, the paper path's; then the GroupNorm pair, with
+``"tpu_kernel": null``, its other shapes and its launches by path), and as its last line
 ``{"ok": true, "device": {...}}``.  The kernels phase also times K1, K2
 and K3 at the relight path's shapes (``relight_shapes`` in their rows), and
 K1 bf16 and fp32 at the parallel phase's tp = 2 shapes (``tp_shapes``).
@@ -395,6 +411,39 @@ def relight_kernel_launches(attn, pipe, chunks, lat_hw, snippet_len: int, narrow
     return want
 
 
+def unet_norm_calls(cfg) -> int:
+    """GroupNorms of one UNet call: two a ResNet block, one a transformer
+    block, and ``conv_norm_out``.  SD2 and SD1.5: 22 ResNet blocks (2 a down
+    level, 2 in the mid-block, 3 an up level) and 16 transformer blocks, 61."""
+    resnets = len(cfg.down_block_types) * cfg.layers_per_block + 2 + len(cfg.up_block_types) * (cfg.layers_per_block + 1)
+    attns = (sum(cfg.layers_per_block for kind in cfg.down_block_types if kind == "CrossAttnDownBlock2D") + 1
+             + sum(cfg.layers_per_block + 1 for kind in cfg.up_block_types if kind == "CrossAttnUpBlock2D"))
+    return 2 * resnets + attns + 1
+
+
+def vae_norm_calls(cfg, part: str) -> int:
+    """GroupNorms of one VAE ``encode`` or ``decode`` call: two a ResNet block
+    (``layers_per_block`` a level in the encoder, one more in the decoder,
+    and the mid-block's two), the mid-block attention's norm and
+    ``conv_norm_out``.  SD's VAE: 22 an encode, 30 a decode."""
+    resnets = len(cfg.block_out_channels) * (cfg.layers_per_block + (part == "decode")) + 2
+    return 2 * resnets + int(cfg.mid_block_add_attention) + 1
+
+
+def norm_kernel_launches(pipe, chunks: dict) -> int:
+    """The GroupNorm pair's launches a bf16 pipeline call implies from its
+    chunk counts: ``unet_norm_calls`` per UNet chunk (snippets, refinement,
+    relight's t2i init on its base UNet), ``vae_norm_calls`` per encode and
+    decode chunk.  Every GroupNorm of a bf16 call takes the pair (fp32 calls
+    take ``F.group_norm``, and none)."""
+    unet = unet_norm_calls(pipe.unet.config) * (chunks.get("unet", 0) + chunks.get("refine_unet", 0))
+    if chunks.get("t2i_unet"):
+        unet += unet_norm_calls(pipe.base_unet.config) * chunks["t2i_unet"]
+    vae = pipe.vae.config
+    return unet + vae_norm_calls(vae, "encode") * chunks.get("encode", 0) + vae_norm_calls(vae, "decode") * chunks.get(
+        "decode", 0)
+
+
 def check_depth(what, out, shape) -> None:
     """depth_pred and depth_coaligned: the clip's shape, finite, within [-1, 1]."""
     for name in ("depth_pred", "depth_coaligned"):
@@ -596,6 +645,181 @@ def variants_phase(torch, fv, bench):
     return rows, launches
 
 
+# ---- the GroupNorm pair (ops/group_norm.py), XLA's fusion written by hand
+
+NORM_GROUPS, NORM_EPS = 32, 1e-6
+# (path, N, C, H, W, silu): a chunk's bf16 GroupNorm input at each level's
+# width (UNet: 8 windows of 3 frames; t2i: 8 frames; VAE: 4 frames), the up
+# blocks' concatenated inputs (960, 1920, 2560 channels: C/G = 30, 60, 80),
+# then ragged H*W and C/G = 10, 20, 30, 80; the first row is the kernels
+# line's
+NORM_SHAPES = (
+    ("fast", 4, 128, 432, 768, True), ("fast", 4, 256, 216, 384, True), ("fast", 4, 512, 108, 192, True),
+    ("fast", 4, 512, 54, 96, True), ("fast", 4, 512, 54, 96, False),
+    ("fast", 24, 320, 54, 96, True), ("fast", 24, 320, 54, 96, False), ("fast", 24, 640, 27, 48, True),
+    ("fast", 24, 1280, 14, 24, True), ("fast", 24, 1280, 7, 12, True),
+    ("fast", 24, 960, 54, 96, True), ("fast", 24, 1920, 27, 48, True), ("fast", 24, 2560, 14, 24, True),
+    ("full", 4, 128, 576, 1024, True), ("full", 4, 256, 288, 512, True), ("full", 4, 512, 144, 256, True),
+    ("full", 24, 320, 72, 128, True), ("full", 24, 640, 36, 64, True), ("full", 24, 1280, 18, 32, True),
+    ("full", 24, 1280, 9, 16, True),
+    ("relight", 4, 128, 640, 720, True), ("relight", 4, 256, 320, 360, True), ("relight", 4, 512, 160, 180, True),
+    ("relight", 24, 320, 80, 90, True), ("relight", 24, 640, 40, 45, True), ("relight", 24, 1280, 20, 23, True),
+    ("relight", 24, 1280, 10, 12, True), ("relight", 8, 320, 80, 90, True), ("relight", 24, 960, 80, 90, True),
+    ("ragged", 3, 320, 37, 53, True), ("ragged", 2, 640, 13, 29, False), ("ragged", 5, 960, 11, 7, True),
+    ("ragged", 1, 2560, 3, 5, True), ("ragged", 3, 128, 101, 67, False),
+)
+# the pair's fp32 statistics against torch.var_mean's: |mean error| in
+# standard deviations, |inv / inv_ref - 1|; fp32 sums in another order
+# part them by ~1e-7, the statistics without one block's chunk by >1e-4
+NORM_STATS_TOL = 1e-5
+# only the bf16 roundings of mean and inv can differ from the plain version,
+# where fp32 statistics sit within ~1e-7 of a rounding boundary
+NORM_EQUAL_SHARE = 0.999
+PLAIN_NORM_CALLS = [0]  # calls of the plain GroupNorm since the last reset_norm_counts
+
+
+def watch_plain_norms(gn) -> None:
+    """Count every call of ``gn.group_norm_reference`` in PLAIN_NORM_CALLS
+    (the wrapper looks it up at call time), so a path can show it never ran."""
+    plain = gn.group_norm_reference
+
+    def counted(*args, **kwargs):
+        PLAIN_NORM_CALLS[0] += 1
+        return plain(*args, **kwargs)
+
+    gn.group_norm_reference = counted
+
+
+def reset_norm_counts(gn) -> None:
+    gn.reset_launch_counts()
+    PLAIN_NORM_CALLS[0] = 0
+
+
+def norm_counts(gn) -> dict:
+    return {"group_norm": gn.group_norm.launches, "plain": PLAIN_NORM_CALLS[0]}
+
+
+def held_norm_counts(what, gn, pipe, chunks) -> dict:
+    """Raise unless a bf16 call's pair launches equal ``norm_kernel_launches``
+    and the plain version ran 0 times; returns the counts."""
+    got, want = norm_counts(gn), norm_kernel_launches(pipe, chunks)
+    if got != {"group_norm": want, "plain": 0}:
+        raise AssertionError(f"{what}: GroupNorm {got}, want {want} pair launches and 0 plain from chunks {chunks}")
+    return got
+
+
+def norm_bound_ms(n, c, h, w) -> tuple:
+    """Least time for one GroupNorm (+ silu) call: x read once and y written
+    once (bf16), weight and bias once, at the memory rate; or ~12 fp32
+    operations an element (statistics, the four rounded ops, silu) at the
+    non-tensor fp32 peak."""
+    elems = n * c * h * w
+    t_bytes, t_ops = (4 * elems + 4 * c) / H100_BYTES_PER_S * 1e3, 12.0 * elems / H100_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def norm_inputs(torch, gen, n, c, h, w) -> tuple:
+    """x [N, C, H, W] bf16 in channels_last memory (a per-channel scale and
+    offset, and a ramp over the pixels, so that the image's last statistics
+    chunk differs from the rest), weight and bias [C] bf16."""
+    x = torch.randn((n, h, w, c), generator=gen, device="cuda")
+    x = x * (0.5 + torch.rand(c, generator=gen, device="cuda")) + torch.randn(c, generator=gen, device="cuda")
+    x = x + torch.linspace(0, 1, h * w, device="cuda").reshape(1, h, w, 1)
+    wt = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    return x.bfloat16().permute(0, 3, 1, 2), wt.bfloat16(), (0.2 * torch.randn(c, generator=gen, device="cuda")).bfloat16()
+
+
+def norm_stats_error(torch, x, mean, inv, groups, eps, pixels=None) -> float:
+    """How far (mean, inv) [N, G] are from torch.var_mean's fp32 statistics of
+    x's first ``pixels`` pixels (all by default): the larger of |mean error|
+    in standard deviations and |inv / inv_ref - 1|."""
+    n, c, h, w = x.shape
+    xg = x.permute(0, 2, 3, 1).reshape(n, h * w, groups, c // groups)[:, :pixels].float()
+    var, ref = torch.var_mean(xg, dim=(1, 3), correction=0)
+    err_mean = ((mean - ref).abs() / var.sqrt()).max().item()
+    err_inv = (inv / torch.rsqrt(var + eps) - 1).abs().max().item()
+    return max(err_mean, err_inv)
+
+
+def held_norm(torch, gn, what, x, wt, b, silu) -> dict:
+    """The pair against the plain version on the same x: the bf16 kernel rule
+    (max |error| within 2e-2 of the output's scale, mean within
+    MEAN_TOL_BF16 of the mean |output|) and at least NORM_EQUAL_SHARE of the
+    elements bit-equal; its statistics within NORM_STATS_TOL of
+    torch.var_mean's, a bound the statistics without each image's last
+    chunk (one block of the statistics kernel) must exceed; a second call
+    bit-equal to the first."""
+    n, c, h, w = x.shape
+    y, mean, inv = gn._launch(x, wt, b, NORM_GROUPS, NORM_EPS, silu)
+    again, _, _ = gn._launch(x, wt, b, NORM_GROUPS, NORM_EPS, silu)
+    ref = gn.group_norm_reference(x, wt, b, NORM_GROUPS, NORM_EPS, silu)
+    torch.cuda.synchronize()
+    diff = (y.float() - ref.float()).abs()
+    err, tol = diff.max().item(), 2e-2 * ref.float().abs().max().item()
+    mean_err, mean_tol = diff.mean().item(), MEAN_TOL_BF16 * ref.float().abs().mean().item()
+    share = (y == ref).float().mean().item()
+    stats = norm_stats_error(torch, x, mean, inv, NORM_GROUPS, NORM_EPS)
+    per_chunk, chunks = gn.stats_plan(n, h * w, c)
+    dropped = (norm_stats_error(torch, x, mean, inv, NORM_GROUPS, NORM_EPS, (chunks - 1) * per_chunk)
+               if chunks > 1 else None)
+    out = {"max_abs_err": err, "tol": tol, "mean_abs_err": mean_err, "mean_tol": mean_tol, "equal_share": share,
+           "stats_err": stats, "stats_tol": NORM_STATS_TOL, "dropped_chunk_stats_err": dropped,
+           "stats_chunks": chunks, "repeat_equal": bool(torch.equal(y, again)), "finite": bool(y.isfinite().all())}
+    if not (out["finite"] and err <= tol and mean_err <= mean_tol and share >= NORM_EQUAL_SHARE
+            and stats <= NORM_STATS_TOL and (dropped is None or dropped > NORM_STATS_TOL) and out["repeat_equal"]):
+        raise AssertionError(f"{what}: GroupNorm pair against the plain version: {out}")
+    return out
+
+
+def group_norm_phase(torch, gn, smi) -> list:
+    """The pair at every shape of NORM_SHAPES: the public wrapper once each
+    with the count from 0, then each shape held to the plain version
+    (``held_norm``) and timed beside it, one ``F.group_norm`` call (the
+    library's yardstick, norm only) and the bound; a non-channels_last x
+    and an autograd-recording call must raise.  Returns the rows in
+    NORM_SHAPES' order."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    reset_norm_counts(gn)
+    rows, t0 = [], time.perf_counter()
+    for i, (path, n, c, h, w, silu) in enumerate(NORM_SHAPES):
+        x, wt, b = norm_inputs(torch, gen, n, c, h, w)
+        y = gn.group_norm(x, wt, b, NORM_GROUPS, NORM_EPS, silu)
+        if gn.group_norm.launches != i + 1 or y.shape != x.shape or not y.is_contiguous(
+                memory_format=torch.channels_last):
+            raise AssertionError(f"groupnorm {(n, c, h, w)}: launches {gn.group_norm.launches} after {i + 1} calls, "
+                                 f"or output {tuple(y.shape)} not channels_last")
+        errs = held_norm(torch, gn, f"groupnorm {path} {(n, c, h, w)} silu={silu}", x, wt, b, silu)
+        big = n * c * h * w > 5e7
+        bound_ms, bound_by = norm_bound_ms(n, c, h, w)
+        row = {"phase": "groupnorm", "path": path, "shape": [n, c, h, w], "silu": silu, "groups": NORM_GROUPS,
+               **errs, "ms": cuda_ms(lambda: gn._launch(x, wt, b, NORM_GROUPS, NORM_EPS, silu), 10 if big else 50),
+               "plain_ms": cuda_ms(lambda: gn.group_norm_reference(x, wt, b, NORM_GROUPS, NORM_EPS, silu),
+                                   3 if big else 10, warmup=1),
+               "library_ms": cuda_ms(lambda: F.group_norm(x, NORM_GROUPS, wt, b, NORM_EPS), 10 if big else 50),
+               "bound_ms": bound_ms, "bound_by": bound_by, "pair_bytes": 6 * n * c * h * w}
+        log(row)
+        rows.append(row)
+        del x, y
+    x, wt, b = norm_inputs(torch, gen, 2, 320, 9, 16)
+    nchw, recorded = x.contiguous(), x.detach().clone().requires_grad_()
+    refusals = {}
+    for name, call in (("nchw", lambda: gn.group_norm(nchw, wt, b, NORM_GROUPS, NORM_EPS, True)),
+                       ("autograd", lambda: gn.group_norm(recorded, wt, b, NORM_GROUPS, NORM_EPS, True))):
+        try:
+            with torch.enable_grad():
+                call()
+            refusals[name] = "ran"
+        except (ValueError, RuntimeError) as e:
+            refusals[name] = str(e)[:80]
+    if "ran" in refusals.values():
+        raise AssertionError(f"groupnorm: the pair took what it must refuse: {refusals}")
+    log({"phase": "groupnorm_summary", "shapes": len(rows), "seconds": time.perf_counter() - t0,
+         "refusals": refusals, "card": smi})
+    return rows
+
+
 def kernel_phase(torch, fa):
     """Each kernel against its plain version; returns the main-shape rows."""
     import torch.nn.functional as F
@@ -684,7 +908,7 @@ def check_rgb(what, out, shape) -> None:
             raise AssertionError(f"{what}: {name} {c.shape} (want {shape}) not finite or outside [0, 1]")
 
 
-def relight_phase(torch, attn, fa, gen, smi, measure_only: bool):
+def relight_phase(torch, attn, fa, gn, gen, smi, measure_only: bool):
     """The relight path (``pipelines/rollingimg.py``) at full SD1.5 width with
     random weights: a 6-frame warm-up, then a timed bf16 call on 24 frames of
     720x640 (``RELIGHT_CALL``: dilations [1, 25] capped to [1, 7], 22 + 10
@@ -726,6 +950,7 @@ def relight_phase(torch, attn, fa, gen, smi, measure_only: bool):
     del ref6
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    reset_norm_counts(gn)
     t0 = time.perf_counter()
     with solve_probe() as probe:
         out = pipe.forward(fg, bg, verbose=True, **RELIGHT_CALL)
@@ -737,9 +962,10 @@ def relight_phase(torch, attn, fa, gen, smi, measure_only: bool):
     want = relight_kernel_launches(attn, pipe, chunks, lat_hw, 3, "flash_attention_nomax")
     if launches != want:
         raise AssertionError(f"relight: launches {launches} != {want} implied by chunks {chunks}")
+    norms = held_norm_counts("relight", gn, pipe, chunks)
     log({"phase": "relight", "frames": n, "res": list(RELIGHT_RES[1:]), "warmup_frames": 6, "warmup_s": warm_s,
          "total_s": total_s, "fps": n / total_s, "timings_s": pipe.last_timings, "chunks": chunks,
-         "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+         "launches": launches, "norm_launches": norms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     # the three channel solves: one capture (24 frames is a new shape), then R's solve again, graph against eager
     if len(probe["calls"]) != 3:
         raise AssertionError(f"relight: {len(probe['calls'])} solves, not one a channel")
@@ -785,7 +1011,7 @@ def relight_phase(torch, attn, fa, gen, smi, measure_only: bool):
         raise AssertionError(f"relight fp32 with kernels vs plain attention: {drift}")
     log({"phase": "relight_check", **checks, "card": smi})
     del pipe32
-    return launches, parallel_ref
+    return launches, parallel_ref, norms
 
 
 TRAIN_CLIPS, TRAIN_FRAMES, TRAIN_RES = 2, 8, (480, 640)
@@ -838,6 +1064,7 @@ def train_phase(torch, attn, fa, smi, ckpt: str):
     dataset's encode and TRAIN_STEPS steps, launches against what they
     imply; saves the state to ``ckpt``.  Returns (setup, dataset, step,
     launches)."""
+    from rollingdepth_torch.ops import group_norm as gn
     from rollingdepth_torch.training import TrainConfig, make_train_step, save_train_state, step_seconds
     from rollingdepth_torch.training_data import SnippetDataConfig, SnippetLatentDataset, vae_encode_fn
     from rollingdepth_torch.utils.synthetic import random_training_setup
@@ -850,6 +1077,7 @@ def train_phase(torch, attn, fa, smi, ckpt: str):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    gn.reset_launch_counts()
     t0 = time.perf_counter()
     data = SnippetLatentDataset(vae_encode_fn(setup.vae, TRAIN_VAE_BS), setup.rgb_clips, setup.depth_clips,
                                 SnippetDataConfig(**TRAIN_DATA), device="cuda")
@@ -874,9 +1102,9 @@ def train_phase(torch, attn, fa, smi, ckpt: str):
     lat_hw = (TRAIN_RES[0] // 8, TRAIN_RES[1] // 8)
     want = train_kernel_launches(attn, setup.unet.config, TRAIN_DATA["snippet_len"], lat_hw, TRAIN_STEPS,
                                  encode_chunks)
-    if launches != want:
+    if launches != want or gn.group_norm.launches:
         raise AssertionError(f"train: launches {launches} != {want} ({TRAIN_STEPS} steps, "
-                             f"{encode_chunks} encode chunks)")
+                             f"{encode_chunks} encode chunks), or {gn.group_norm.launches} GroupNorm pairs (fp32: 0)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     t0 = time.perf_counter()
     save_train_state(ckpt, setup.unet, step.optimizer)
@@ -973,7 +1201,7 @@ W8A8_DEPTH_CORR = 0.95  # JAX's bound for the W8A8 pipeline's depth against the 
 W8A8_TP_WINDOWS = 4  # the (2, 2) mesh's W8A8 UNet chunk: 2 windows a dp rank
 
 
-def w8a8_phase(torch, attn, fa, pipe, frames, ref_out, ref_s, ref_launches, smi) -> dict:
+def w8a8_phase(torch, attn, fa, gn, pipe, frames, ref_out, ref_s, ref_launches, smi, norms: dict) -> dict:
     """(a) The int8 GEMM and convolution of ``ops/quant.py`` on the card, at
     an SD2 shape each (one window of the level-0 GEGLU projection; the
     level-0 3x3 conv on one window), bit for bit against the exact product
@@ -1034,6 +1262,7 @@ def w8a8_phase(torch, attn, fa, pipe, frames, ref_out, ref_s, ref_launches, smi)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     fa.reset_launch_counts()
+    reset_norm_counts(gn)
     t0 = time.perf_counter()
     out_q = qpipe(input_frames=frames, verbose=True, **FAST_PRESET)
     torch.cuda.synchronize()
@@ -1046,6 +1275,7 @@ def w8a8_phase(torch, attn, fa, pipe, frames, ref_out, ref_s, ref_launches, smi)
     if launches != want or launches != ref_launches:
         raise AssertionError(f"w8a8: launches {launches} != {want} implied by chunks {chunks}, "
                              f"or != the bf16 call's {ref_launches}")
+    norms["w8a8"] = held_norm_counts("w8a8", gn, qpipe, chunks)
     depth = depth_drift(out_q.depth_pred, ref_out.depth_pred)
     if not (depth["finite"] and depth["corr"] > W8A8_DEPTH_CORR):
         raise AssertionError(f"w8a8: depth {depth} against the bf16 call's, bound corr > {W8A8_DEPTH_CORR}")
@@ -1054,7 +1284,7 @@ def w8a8_phase(torch, attn, fa, pipe, frames, ref_out, ref_s, ref_launches, smi)
          "depth_vs_bf16": depth, "depth_corr_bound": W8A8_DEPTH_CORR, "frames": n,
          "res": list(frames.shape[2:]), "setup_s": setup_s, "warmup_12_frames_s": warm_s, "total_s": total_s,
          "fps": n / total_s, "bf16_total_s": ref_s, "bf16_fps": n / ref_s, "timings_s": qpipe.last_timings,
-         "chunks": chunks, "launches": launches, "card": smi})
+         "chunks": chunks, "launches": launches, "norm_launches": norms["w8a8"], "card": smi})
     del qpipe, qunet, out_q, xu
     _free_card(torch)
 
@@ -1120,6 +1350,7 @@ def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> di
 
     from rollingdepth_torch.ops import attention as attn
     from rollingdepth_torch.ops import flash_attention as fa
+    from rollingdepth_torch.ops import group_norm as gn
     from rollingdepth_torch.parallel.mesh import axis, make_mesh
     from rollingdepth_torch.models.layers import init_random_
     from rollingdepth_torch.models.unet import UNet2DConditionModel, UNetConfig
@@ -1130,6 +1361,7 @@ def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> di
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    watch_plain_norms(gn)
     spec = torch.load(spec_path, weights_only=False)
     mesh = make_mesh(PARALLEL_MESH, "cuda")
     tp, tp_rank, _ = axis(mesh, "tp")
@@ -1169,6 +1401,7 @@ def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> di
         t0 = time.perf_counter()
         pipe, bound = random_depth_pipeline("cuda", dtype, seed=0, mesh=mesh)
         fa.reset_launch_counts()
+        reset_norm_counts(gn)
         t1 = time.perf_counter()
         o = pipe(input_frames=frames, **kw)
         torch.cuda.synchronize()
@@ -1177,6 +1410,9 @@ def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> di
         res = {"launches": {fn.__name__: fn.launches for fn in fa.KERNELS},
                "want": attention_kernel_launches(attn, pipe, chunks, lat_hw, 3, 3, "flash_attention_nomax", tp=tp),
                "chunks": chunks, "local_heads": [c[2] for c in kernel_calls(attn, pipe.unet.config, 3, *lat_hw, tp)],
+               "norms": norm_counts(gn),  # bf16: the pair on every norm; fp32: F.group_norm
+               "norms_want": {"group_norm": norm_kernel_launches(pipe, chunks) if dtype == torch.bfloat16 else 0,
+                              "plain": 0},
                "score_bound": bound, "nomax_allowed": attn.nomax_allowed(),
                "windows": _max_err(torch, torch.cat(pipe.last_window_latents), spec[f"{name}_windows"]),
                "setup_s": t1 - t0, "call_s": t2 - t1}
@@ -1230,14 +1466,17 @@ def parallel_relight_rank(rank: int, spec_path: str) -> dict:
 
     from rollingdepth_torch.ops import attention as attn
     from rollingdepth_torch.ops import flash_attention as fa
+    from rollingdepth_torch.ops import group_norm as gn
     from rollingdepth_torch.parallel.mesh import axis, make_mesh
     from rollingdepth_torch.utils.synthetic import random_relight_pipeline
 
+    watch_plain_norms(gn)
     spec = torch.load(spec_path, weights_only=False)
     mesh = make_mesh(RELIGHT_MESH, "cuda")
     t0 = time.perf_counter()
     pipe, _ = random_relight_pipeline("cuda", torch.bfloat16, seed=0, mesh=mesh)
     fa.reset_launch_counts()
+    reset_norm_counts(gn)
     t1 = time.perf_counter()
     o = pipe.forward(spec["fg"].cuda(), spec["bg"].cuda(), **spec["call"])
     torch.cuda.synchronize()
@@ -1247,6 +1486,7 @@ def parallel_relight_rank(rank: int, spec_path: str) -> dict:
     return {"rank": rank, "backend": dist.get_backend(), "dp": axis(mesh, "dp")[:2], "chunks": chunks,
             "launches": {fn.__name__: fn.launches for fn in fa.KERNELS},
             "want": relight_kernel_launches(attn, pipe, chunks, lat_hw, 3, "flash_attention_nomax"),
+            "norms": norm_counts(gn), "norms_want": {"group_norm": norm_kernel_launches(pipe, chunks), "plain": 0},
             "windows": [_max_err(torch, g, r) for g, r in zip(o.snippet_ls, spec["snippet_ls"])],
             "rgb": _max_err(torch, rgb, spec["rgb"]), "setup_s": t1 - t0, "call_s": time.perf_counter() - t1}
 
@@ -1307,9 +1547,9 @@ def parallel_phase(torch, smi, refs: dict, tmp: str) -> dict:
     for r in ranks:
         for name, max_rel in (("bfloat16", 2e-2), ("float32", 1e-4)):
             res = r[name]
-            if res["launches"] != res["want"]:
+            if res["launches"] != res["want"] or res["norms"] != res["norms_want"]:
                 raise AssertionError(f"parallel rank {r['rank']} {name}: launches {res['launches']} != {res['want']} "
-                                     f"implied by chunks {res['chunks']}")
+                                     f"or GroupNorm {res['norms']} != {res['norms_want']}, from chunks {res['chunks']}")
             w = res["windows"]
             if not (w["finite"] and w["max_abs_err"] <= max_rel * w["scale"]):
                 raise AssertionError(f"parallel rank {r['rank']} {name}: windows {w} beyond {max_rel} of the scale")
@@ -1331,9 +1571,9 @@ def parallel_phase(torch, smi, refs: dict, tmp: str) -> dict:
             raise AssertionError(f"parallel rank {r['rank']}: {tr['param']} moved apart by {tr['params_max_abs_diff']}"
                                  f", a skipped update by {skipped}; bound {PAR_PARAMS_TOL}")
     for r in relight:
-        if r["launches"] != r["want"]:
+        if r["launches"] != r["want"] or r["norms"] != r["norms_want"]:
             raise AssertionError(f"parallel relight rank {r['rank']}: launches {r['launches']} != {r['want']} "
-                                 f"implied by chunks {r['chunks']}")
+                                 f"or GroupNorm {r['norms']} != {r['norms_want']}, from chunks {r['chunks']}")
         for w in r["windows"] + [r["rgb"]]:
             if not (w["finite"] and w["max_abs_err"] <= 2e-2 * w["scale"]):
                 raise AssertionError(f"parallel relight rank {r['rank']}: {w} beyond 2e-2 of the scale")
@@ -1346,6 +1586,8 @@ def parallel_phase(torch, smi, refs: dict, tmp: str) -> dict:
     for check, rs in (("bfloat16", ranks), ("float32", ranks)):
         launches[check] = [r[check]["launches"] for r in rs]
     launches["relight"] = [r["launches"] for r in relight]
+    launches["norms"] = [r["bfloat16"]["norms"]["group_norm"] for r in ranks]
+    launches["relight_norms"] = [r["norms"]["group_norm"] for r in relight]
     return launches
 
 
@@ -1374,6 +1616,7 @@ def main(argv=None) -> int:
     from rollingdepth_torch.ops import conv3x3 as conv
     from rollingdepth_torch.ops import flash_attention as fa
     from rollingdepth_torch.ops import flash_variants as fv
+    from rollingdepth_torch.ops import group_norm as gn
     from rollingdepth_torch.pipelines.snippets import snippet_index_matrix
     from rollingdepth_torch.tools import bench_flash_variants as bench
     from rollingdepth_torch.tools import multihost_demo as demo_mod
@@ -1400,6 +1643,8 @@ def main(argv=None) -> int:
     t1 = time.perf_counter()
     variant_rows, variant_launches = variants_phase(torch, fv, bench)
     log({"phase": "slice2_seconds", "conv": t1 - t0, "variants": time.perf_counter() - t1})
+    watch_plain_norms(gn)
+    norm_rows = group_norm_phase(torch, gn, smi)
 
     # ---- main path at full SD2 width
     dtype = torch.bfloat16
@@ -1425,6 +1670,7 @@ def main(argv=None) -> int:
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    reset_norm_counts(gn)
     t0 = time.perf_counter()
     with solve_probe() as fast_probe:
         out = pipe(input_frames=frames, verbose=True, **fast)
@@ -1437,8 +1683,10 @@ def main(argv=None) -> int:
     want = attention_kernel_launches(attn, pipe, chunks, lat_hw, 3, 3, "flash_attention_nomax")
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} implied by chunks {chunks}")
+    norms = {"main": held_norm_counts("main", gn, pipe, chunks)}
     log({"phase": "main", "frames": n_frames, "res": [height, width], "warmup_s": warm_s, "total_s": total_s,
          "fps": n_frames / total_s, "timings_s": pipe.last_timings, "chunks": chunks, "launches": launches,
+         "norm_launches": norms["main"],
          "solve_captures": [warm_probe["captures"], fast_probe["captures"]],
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     held_equal("fast", warm, out.depth_pred, 0.0, measure_only,  # the warm-up is the same call
@@ -1453,19 +1701,21 @@ def main(argv=None) -> int:
 
     # ---- the W8A8 serving mode on the same frames and noise
     t0 = time.perf_counter()
-    w8a8_ref = w8a8_phase(torch, attn, fa, pipe, frames, out, total_s, launches, smi)
+    w8a8_ref = w8a8_phase(torch, attn, fa, gn, pipe, frames, out, total_s, launches, smi, norms)
     log({"phase": "w8a8_seconds", "seconds": time.perf_counter() - t0})
 
     # ---- the same path with the max-free gate closed: the running-max kernel
     attn.set_nomax_allowed(False)
     try:
         fa.reset_launch_counts()
+        reset_norm_counts(gn)
         out_g = pipe(input_frames=frames[:12], **fast)
         torch.cuda.synchronize()
         launches_g = {fn.__name__: fn.launches for fn in fa.KERNELS}
         chunks_g = dict(pipe.last_chunks)
     finally:
         attn.set_nomax_allowed(True)
+    norms["gate_closed"] = held_norm_counts("gate_closed", gn, pipe, chunks_g)
     want_g = attention_kernel_launches(attn, pipe, chunks_g, lat_hw, 3, 3, "flash_attention_max")
     if launches_g != want_g or not torch.isfinite(torch.from_numpy(out_g.depth_pred)).all():
         raise AssertionError(f"gate-closed launches {launches_g} != {want_g}, or non-finite depth")
@@ -1485,6 +1735,7 @@ def main(argv=None) -> int:
     del warm, again
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    reset_norm_counts(gn)
     t0 = time.perf_counter()
     out_f = pipe(input_frames=full_frames, verbose=True, **FULL_PRESET)
     torch.cuda.synchronize()
@@ -1497,9 +1748,10 @@ def main(argv=None) -> int:
                                        "flash_attention_nomax")
     if launches_f != want_f:
         raise AssertionError(f"full: launches {launches_f} != {want_f} implied by chunks {chunks_f}")
+    norms["full"] = held_norm_counts("full", gn, pipe, chunks_f)
     log({"phase": "full", "frames": n_frames, "res": list(FULL_RES[1:]), "warmup_frames": 12,
          "warmup_s": warm_full_s, "total_s": full_s, "fps": n_frames / full_s, "timings_s": pipe.last_timings,
-         "chunks": chunks_f, "launches": launches_f,
+         "chunks": chunks_f, "launches": launches_f, "norm_launches": norms["full"],
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     del full_frames, out_f
 
@@ -1565,6 +1817,7 @@ def main(argv=None) -> int:
                                  dtype=torch.uint8)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    reset_norm_counts(gn)
     t0 = time.perf_counter()
     with solve_probe() as paper_probe:
         out_p = pipe32(input_frames=paper_frames, verbose=True, **PAPER_PRESET)
@@ -1581,6 +1834,9 @@ def main(argv=None) -> int:
                                        "flash_attention_nomax")
     if launches_p != want_p:
         raise AssertionError(f"paper: launches {launches_p} != {want_p} implied by chunks {chunks_p}")
+    norms["paper"] = norm_counts(gn)  # fp32: every norm on F.group_norm
+    if norms["paper"] != {"group_norm": 0, "plain": 0}:
+        raise AssertionError(f"paper (fp32): GroupNorm counts {norms['paper']}, want none")
     log({"phase": "paper", "frames": PAPER_FRAMES, "res": list(PAPER_RES[1:]), "total_s": paper_s,
          "fps": PAPER_FRAMES / paper_s, "timings_s": pipe32.last_timings, "chunks": chunks_p,
          "launches": launches_p, "snippet_ls": snippet_shapes,
@@ -1603,7 +1859,7 @@ def main(argv=None) -> int:
 
     # ---- the relight path at 720x640, full SD1.5 width
     t0 = time.perf_counter()
-    launches_r, relight_ref = relight_phase(torch, attn, fa, gen, smi, measure_only)
+    launches_r, relight_ref, norms["relight"] = relight_phase(torch, attn, fa, gn, gen, smi, measure_only)
     log({"phase": "relight_seconds", "seconds": time.perf_counter() - t0})
 
     # ---- the training path at full SD2 width, fp32, 480x640
@@ -1691,6 +1947,16 @@ def main(argv=None) -> int:
         extra = {"shares_kernel": shares} if shares else {}
         kernels.append(entry(name, tpu, flash_src, f"scripts/bench_flash_variants.py:{line}",
                              variant_launches[name], variant_rows[name], False, **extra))
+    # the GroupNorm pair: XLA's reduction and loop fusion written by hand (no TPU kernel)
+    norm_phases = {**{k: v["group_norm"] for k, v in norms.items()}, "parallel_ranks": launches_par["norms"],
+                   "parallel_relight_ranks": launches_par["relight_norms"]}
+    norm_keys = ("path", "shape", "silu", "max_abs_err", "equal_share", "stats_err", "ms", "plain_ms", "library_ms",
+                 "bound_ms")
+    kernels.append(entry("group_norm", None, "rollingdepth_torch/csrc/group_norm.cu",
+                         "rollingdepth_tpu/models/layers.py:126 (XLA fusion)", norms["main"]["group_norm"],
+                         norm_rows[0], True, design="stats+merge+fused pass", launches_by_phase=norm_phases,
+                         silu=norm_rows[0]["silu"], library="F.group_norm (norm only)",
+                         shapes=[{k: r[k] for k in norm_keys} for r in norm_rows[1:]]))
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -4,8 +4,10 @@ Counterpart of ``rollingdepth_tpu/models/layers.py``.  Modules run in
 NCHW (on CUDA the models keep activations in ``channels_last`` memory
 format, which cuDNN prefers); the models convert at their public NHWC
 boundary.  Norms keep the JAX package's precision:
-- ``group_norm``: fp32 statistics; fp32 inputs normalise in fp32, bf16
-  inputs normalise in bf16 (as ``layers.group_norm`` does);
+- ``group_norm``: fp32 statistics; fp32 inputs normalise in fp32
+  (``F.group_norm``), bf16 inputs normalise in bf16 (as ``layers.group_norm``
+  does) through ``ops/group_norm.py``: on the card its hand-written pair,
+  which also takes the silu after the norm (``silu=True``), as XLA fuses it;
 - ``layer_norm``: computed in fp32, cast back.
 Self-attention goes through ``ops.attention.dot_product_attention``.
 ``Attention`` and ``FeedForward`` also run as Megatron tp shards
@@ -25,23 +27,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import group_norm as gn
 from ..ops.attention import dot_product_attention
 from ..ops.quant import QuantLinear
 from ..parallel.sharding import copy_to_tp, reduce_from_tp
 
 
-def group_norm(norm: nn.GroupNorm, x: torch.Tensor, eps: Optional[float] = None) -> torch.Tensor:
-    """GroupNorm over an NCHW tensor with ``norm``'s groups, weight and bias."""
+def group_norm(norm: nn.GroupNorm, x: torch.Tensor, eps: Optional[float] = None, silu: bool = False) -> torch.Tensor:
+    """GroupNorm over an NCHW tensor with ``norm``'s groups, weight and bias,
+    then ``F.silu`` when ``silu``."""
     eps = norm.eps if eps is None else eps
     if x.dtype == torch.float32:
-        return F.group_norm(x, norm.num_groups, norm.weight, norm.bias, eps)
-    n, c, h, w = x.shape
-    g = norm.num_groups
-    xg = x.permute(0, 2, 3, 1).reshape(n, h * w, g, c // g)  # a view in channels_last
-    var, mean = torch.var_mean(xg.float(), dim=(1, 3), keepdim=True, correction=0)
-    inv = torch.rsqrt(var + eps)
-    out = ((xg - mean.to(x.dtype)) * inv.to(x.dtype)).reshape(n, h, w, c).permute(0, 3, 1, 2)
-    return out * norm.weight.to(x.dtype)[:, None, None] + norm.bias.to(x.dtype)[:, None, None]
+        out = F.group_norm(x, norm.num_groups, norm.weight, norm.bias, eps)
+        return F.silu(out) if silu else out
+    return gn.group_norm(x, norm.weight, norm.bias, norm.num_groups, eps, silu=silu)
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -129,10 +128,10 @@ class ResnetBlock2D(nn.Module):
             self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(group_norm(self.norm1, x)))
+        h = self.conv1(group_norm(self.norm1, x, silu=True))
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None].to(h.dtype)
-        h = self.conv2(F.silu(group_norm(self.norm2, h)))
+        h = self.conv2(group_norm(self.norm2, h, silu=True))
         skip = self.conv_shortcut(x) if hasattr(self, "conv_shortcut") else x
         return skip + h
 

@@ -231,5 +231,5 @@ class UNet2DConditionModel(nn.Module):
                 target: Optional[Tuple[int, int]] = tuple(res_stack[-1].shape[2:]) if res_stack else None
                 hidden = block.upsamplers[0](hidden, target)
 
-        hidden = self.conv_out(F.silu(L.group_norm(self.conv_norm_out, hidden)))
+        hidden = self.conv_out(L.group_norm(self.conv_norm_out, hidden, silu=True))
         return hidden.permute(0, 2, 3, 1).reshape(s, n, h, w, cfg.out_channels)

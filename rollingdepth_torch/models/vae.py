@@ -14,7 +14,6 @@ import dataclasses
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
@@ -99,7 +98,7 @@ class Encoder(nn.Module):
             if hasattr(stage, "downsamplers"):
                 h = stage.downsamplers[0](h)
         h = self.mid_block(h)
-        return self.conv_out(F.silu(L.group_norm(self.conv_norm_out, h)))
+        return self.conv_out(L.group_norm(self.conv_norm_out, h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -128,7 +127,7 @@ class Decoder(nn.Module):
                 h = r(h)
             if hasattr(stage, "upsamplers"):
                 h = stage.upsamplers[0](h)
-        return self.conv_out(F.silu(L.group_norm(self.conv_norm_out, h)))
+        return self.conv_out(L.group_norm(self.conv_norm_out, h, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -20,6 +20,15 @@ The profiler slows the host: a phase bound by the host (the aligner's
 loop) runs longer under it than in ``chip_smoke.py``, so its idle share
 here is an upper bound.
 
+In the profiled call every GroupNorm of the models runs with the silu after
+it inside one span, ``NORM_SPAN`` (``norm_chain_spans``), and ``norm_chain``
+reports per phase the device time of the kernels launched inside those
+spans, their launches, and the chain's kernels by name.  The span wraps
+``layers.group_norm`` and ``F.silu`` of a 4-D tensor, so it holds the same
+chain whether the silu runs after the norm (op by op) or inside it (the
+hand-written pair of ``ops/group_norm.py``); on an older checkout of the
+package, copy this file over its own to measure it the same way.
+
 ``--relight`` runs the relight path instead (``random_relight_pipeline``,
 bf16, ``RELIGHT_CALL``: t2i init, dilations [1, 25], 20 DPM++ SDE steps,
 the three per-channel solves) on a synthetic fg/bg pair at 720x640 (the
@@ -30,6 +39,7 @@ writes ``profile_relight.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -72,6 +82,92 @@ def device_shares(events, prefixes=("rollingdepth.", "rollingimg.")):
         call = {"host_ms": (b - a) / 1e3, "device_busy_ms": busy_us(a, b) / 1e3,
                 "idle_share": 1.0 - busy_us(a, b) / (b - a)}
     return phases, call, kernels
+
+
+NORM_SPAN = "rollingdepth_norm.group_norm_silu"
+
+
+@contextlib.contextmanager
+def norm_chain_spans():
+    """Each ``layers.group_norm`` call, and each ``F.silu`` of a 4-D tensor
+    (the silu after a norm: the time embedding's is 2-D), inside a profiler
+    span ``NORM_SPAN``; a call inside an open span opens none."""
+    import torch.nn.functional as F
+    from torch.profiler import record_function
+
+    from ..models import layers
+
+    norm, silu = layers.group_norm, F.silu
+    depth = [0]
+
+    def spanned(fn, x, *args, **kwargs):
+        if depth[0] or x.dim() != 4:
+            return fn(x, *args, **kwargs)
+        depth[0] += 1
+        try:
+            with record_function(NORM_SPAN):
+                return fn(x, *args, **kwargs)
+        finally:
+            depth[0] -= 1
+
+    layers.group_norm = lambda m, x, *a, **kw: spanned(lambda t, *b, **k: norm(m, t, *b, **k), x, *a, **kw)
+    F.silu = lambda x, *a, **kw: spanned(silu, x, *a, **kw)
+    try:
+        yield
+    finally:
+        layers.group_norm, F.silu = norm, silu
+
+
+def norm_chain(kineto_events, prefixes=("rollingdepth.", "rollingimg.")) -> dict:
+    """Per pipeline phase, the GroupNorm chain of a run under
+    ``norm_chain_spans``, from the profiler's raw events
+    (``prof.profiler.kineto_results.events()``): the spans' calls, and the
+    device time, launches and names of the kernels whose launch call (the
+    ``cudaLaunchKernel`` or ``cuLaunchKernel`` event of the kernel's
+    correlation id) ran on the host inside a span (one thread launches the
+    pipeline's kernels); ``all`` sums the phases.  This join holds for
+    kernels launched through ctypes as for PyTorch's own, where the
+    profiler's op-to-kernel links (``FunctionEvent.kernels``) do not."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in kineto_events if e.device_type() == DeviceType.CPU]
+    cpu_names = {e.name() for e in cpu}  # device-side copies of CPU spans carry their names; kernels do not
+    phases = [(e.name().split(".", 1)[1], e.start_ns(), e.end_ns()) for e in cpu if e.name().startswith(prefixes)]
+    spans = sorted((e.start_ns(), e.end_ns()) for e in cpu if e.name() == NORM_SPAN)
+    launches = {e.correlation_id(): e.start_ns() for e in cpu if e.name().startswith("cu")}
+
+    def phase_of(t):
+        return next((p for p, a, b in phases if a <= t <= b), "outside")
+
+    out = {}
+
+    def row(key):
+        return out.setdefault(key, {"calls": 0, "device_ms": 0.0, "launches": 0, "by_kernel": {}})
+
+    for a, _ in spans:
+        for key in (phase_of(a), "all"):
+            row(key)["calls"] += 1
+    for k in kineto_events:
+        if k.device_type() != DeviceType.CUDA or k.name() in cpu_names or k.correlation_id() not in launches:
+            continue
+        t = launches[k.correlation_id()]
+        i = bisect.bisect_right(spans, (t, float("inf"))) - 1
+        if i < 0 or not spans[i][0] <= t <= spans[i][1]:
+            continue
+        ms = k.duration_ns() / 1e6
+        for key in (phase_of(t), "all"):
+            r = row(key)
+            r["device_ms"] += ms
+            r["launches"] += 1
+            by = r["by_kernel"].setdefault(k.name()[:120], [0, 0.0])
+            by[0] += 1
+            by[1] += ms
+    for r in out.values():
+        r["by_kernel"] = [{"name": n, "count": c, "ms": ms}
+                          for n, (c, ms) in sorted(r["by_kernel"].items(), key=lambda kv: -kv[1][1])]
+    return out
 
 
 def main(argv=None) -> int:
@@ -128,7 +224,7 @@ def main(argv=None) -> int:
         walls.append(time.perf_counter() - t0)
     warmup_s, wall_s = walls
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, norm_chain_spans():
         t0 = time.perf_counter()
         run(verbose=True)
         torch.cuda.synchronize()
@@ -137,7 +233,7 @@ def main(argv=None) -> int:
     phases, call, kernels = device_shares(events)
     result = {"card": smi, "preset": name, "frames": args.frames, "res": [height, width], "wall_s": wall_s,
               "warmup_wall_s": warmup_s, "profiled_wall_s": profiled_s, "attention": os.environ.get("ROLLINGDEPTH_ATTN", "auto"),
-              "device_kernels_seen": len(kernels), "phases": phases}
+              "device_kernels_seen": len(kernels), "phases": phases, "norm_chain": norm_chain(prof.profiler.kineto_results.events())}
     if call is not None:
         result["call"] = call
     by_name = {}
@@ -147,7 +243,7 @@ def main(argv=None) -> int:
         row[1] += k.time_range.end - k.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:30]
     result["kernels_by_device_ms"] = [{"name": n[:120], "count": c, "ms": us / 1e3} for n, (c, us) in top]
-    for key in ("phases", "call"):
+    for key in ("phases", "call", "norm_chain"):
         print(json.dumps({key: result.get(key), "card": smi}), flush=True)
     print(json.dumps({k: result[k] for k in ("wall_s", "warmup_wall_s", "profiled_wall_s", "attention", "preset",
                                              "frames", "res")}),
