@@ -25,18 +25,6 @@ Phases, each of which must pass or the script exits non-zero:
            with the launch counts from 0, then each variant against its
            plain version at [8, 15552, 5, 64] and a ragged [2, 3001, 5, 64]
            with L_k 2,999, with times as for the kernels;
-   groupnorm the bf16 GroupNorm pair (``ops/group_norm.py``, XLA's
-           reduction and loop fusion of the JAX norm and the silu after it,
-           written by hand): every distinct norm input of ``fast``,
-           ``full`` and relight chunks and ragged shapes (``NORM_SHAPES``)
-           through the public wrapper with the count from 0, then each
-           against its plain version: the bf16 rule, at least
-           ``NORM_EQUAL_SHARE`` of the elements bit-equal, the statistics
-           within ``NORM_STATS_TOL`` of ``torch.var_mean``'s (the statistics
-           without each image's last chunk must exceed it), two calls
-           bit-equal; with its time, the plain time, one ``F.group_norm``
-           call's time and the bound; an NCHW x and an autograd-recording
-           call must raise;
 3. main    the fast preset (dilations [1, 25], one DDIM step, latent-space
            merge, bf16, snippet_batch 8, max_vae_bs 4) on a synthetic
            60-frame 432x768 clip at full SD2 width with seeded random
@@ -105,6 +93,24 @@ Phases, each of which must pass or the script exits non-zero:
            bit for bit against one process (the int32 sums are exact), and
            the same chunk with each row-parallel shard's activation scale
            from its own shard (no abs-max all-reduce), which must differ.
+12. groupnorm the bf16 GroupNorm pair (``ops/group_norm.py``, XLA's
+           reduction and loop fusion of the JAX norm and the silu after it,
+           written by hand) at every input that the counted calls of
+           ``main``, ``w8a8``, ``gate_closed``, ``full``, ``relight`` and the
+           bf16 parallel ranks gave it (the wrapper records each
+           ``(N, C, H, W, groups, eps, silu)`` it launches at, in
+           ``group_norm.inputs``), and at ragged shapes (``NORM_RAGGED``):
+           each through the public wrapper with the count from 0, against
+           its plain version: the bf16 rule, the output bit for bit the
+           plain version's pass on the pair's own statistics (so it differs
+           from the plain version only in a group whose bf16 mean or inv
+           rounds apart; those groups and the share of bit-equal elements
+           are logged), the statistics within ``NORM_STATS_TOL`` of
+           ``torch.var_mean``'s (the statistics without each image's last
+           chunk must exceed it), two calls bit-equal;
+           with its time, the plain time, one ``F.group_norm`` call's time
+           and the bound; an NCHW x and an autograd-recording call must
+           raise.
 repeat  two runs of each serving path on the same frames, weights and seed
            must be bit-equal (``torch.equal``), each logged with its element
            count and differences: ``fast`` (the warm-up against the timed
@@ -133,8 +139,9 @@ In main, full, paper, relight and train the kernel launch counts must
 equal what the chunk and step counts imply (``attention_kernel_launches``,
 ``relight_kernel_launches``, ``train_kernel_launches``); in every bf16 call
 (main, w8a8, gate_closed, full, relight, the parallel ranks) the GroupNorm
-pair's launches must equal ``norm_kernel_launches`` and the plain norm run
-0 times, in fp32 (paper, train, the fp32 ranks) the pair none; the depth must be
+pair's launches must equal ``norm_kernel_launches`` (so the plain norm ran
+0 times: on the card the wrapper launches or raises), in fp32 (paper,
+train, the fp32 ranks) the pair none; the depth must be
 finite, of the clip's shape and within [-1, 1], and R/G/B within [0, 1].  The card's
 machine has no video decoder, so no phase reads a video: frames are made
 on the card.
@@ -143,7 +150,9 @@ Prints the card's name and power limit, a JSON line per measurement, a
 ``{"kernels": [...]}`` line (a row per kernel for each of the TPU kernels
 K1-K10; K9 has two, one per instantiation; K1 and K3 have a second row for
 their fp32 instantiation, the paper path's; then the GroupNorm pair, with
-``"tpu_kernel": null``, its other shapes and its launches by path), and as its last line
+``"tpu_kernel": null``, timed at the main path's input that moves the most
+bytes over the call, with its launches by path, the main path's sums over
+all its inputs and each of its inputs), and as its last line
 ``{"ok": true, "device": {...}}``.  The kernels phase also times K1, K2
 and K3 at the relight path's shapes (``relight_shapes`` in their rows), and
 K1 bf16 and fp32 at the parallel phase's tp = 2 shapes (``tp_shapes``).
@@ -647,64 +656,28 @@ def variants_phase(torch, fv, bench):
 
 # ---- the GroupNorm pair (ops/group_norm.py), XLA's fusion written by hand
 
-NORM_GROUPS, NORM_EPS = 32, 1e-6
-# (path, N, C, H, W, silu): a chunk's bf16 GroupNorm input at each level's
-# width (UNet: 8 windows of 3 frames; t2i: 8 frames; VAE: 4 frames), the up
-# blocks' concatenated inputs (960, 1920, 2560 channels: C/G = 30, 60, 80),
-# then ragged H*W and C/G = 10, 20, 30, 80; the first row is the kernels
-# line's
-NORM_SHAPES = (
-    ("fast", 4, 128, 432, 768, True), ("fast", 4, 256, 216, 384, True), ("fast", 4, 512, 108, 192, True),
-    ("fast", 4, 512, 54, 96, True), ("fast", 4, 512, 54, 96, False),
-    ("fast", 24, 320, 54, 96, True), ("fast", 24, 320, 54, 96, False), ("fast", 24, 640, 27, 48, True),
-    ("fast", 24, 1280, 14, 24, True), ("fast", 24, 1280, 7, 12, True),
-    ("fast", 24, 960, 54, 96, True), ("fast", 24, 1920, 27, 48, True), ("fast", 24, 2560, 14, 24, True),
-    ("full", 4, 128, 576, 1024, True), ("full", 4, 256, 288, 512, True), ("full", 4, 512, 144, 256, True),
-    ("full", 24, 320, 72, 128, True), ("full", 24, 640, 36, 64, True), ("full", 24, 1280, 18, 32, True),
-    ("full", 24, 1280, 9, 16, True),
-    ("relight", 4, 128, 640, 720, True), ("relight", 4, 256, 320, 360, True), ("relight", 4, 512, 160, 180, True),
-    ("relight", 24, 320, 80, 90, True), ("relight", 24, 640, 40, 45, True), ("relight", 24, 1280, 20, 23, True),
-    ("relight", 24, 1280, 10, 12, True), ("relight", 8, 320, 80, 90, True), ("relight", 24, 960, 80, 90, True),
-    ("ragged", 3, 320, 37, 53, True), ("ragged", 2, 640, 13, 29, False), ("ragged", 5, 960, 11, 7, True),
-    ("ragged", 1, 2560, 3, 5, True), ("ragged", 3, 128, 101, 67, False),
-)
+# ragged inputs beside those the paths give the pair (``group_norm_phase``):
+# (N, C, H, W, silu), ragged H*W and C/G = 10, 20, 30, 80, 4
+NORM_RAGGED = ((3, 320, 37, 53, True), (2, 640, 13, 29, False), (5, 960, 11, 7, True), (1, 2560, 3, 5, True),
+               (3, 128, 101, 67, False))
+NORM_GROUPS, NORM_EPS = 32, 1e-6  # the ragged inputs' and the refusals'
 # the pair's fp32 statistics against torch.var_mean's: |mean error| in
 # standard deviations, |inv / inv_ref - 1|; fp32 sums in another order
 # part them by ~1e-7, the statistics without one block's chunk by >1e-4
 NORM_STATS_TOL = 1e-5
-# only the bf16 roundings of mean and inv can differ from the plain version,
-# where fp32 statistics sit within ~1e-7 of a rounding boundary
-NORM_EQUAL_SHARE = 0.999
-PLAIN_NORM_CALLS = [0]  # calls of the plain GroupNorm since the last reset_norm_counts
 
 
-def watch_plain_norms(gn) -> None:
-    """Count every call of ``gn.group_norm_reference`` in PLAIN_NORM_CALLS
-    (the wrapper looks it up at call time), so a path can show it never ran."""
-    plain = gn.group_norm_reference
-
-    def counted(*args, **kwargs):
-        PLAIN_NORM_CALLS[0] += 1
-        return plain(*args, **kwargs)
-
-    gn.group_norm_reference = counted
-
-
-def reset_norm_counts(gn) -> None:
-    gn.reset_launch_counts()
-    PLAIN_NORM_CALLS[0] = 0
-
-
-def norm_counts(gn) -> dict:
-    return {"group_norm": gn.group_norm.launches, "plain": PLAIN_NORM_CALLS[0]}
-
-
-def held_norm_counts(what, gn, pipe, chunks) -> dict:
-    """Raise unless a bf16 call's pair launches equal ``norm_kernel_launches``
-    and the plain version ran 0 times; returns the counts."""
-    got, want = norm_counts(gn), norm_kernel_launches(pipe, chunks)
-    if got != {"group_norm": want, "plain": 0}:
-        raise AssertionError(f"{what}: GroupNorm {got}, want {want} pair launches and 0 plain from chunks {chunks}")
+def held_norm_counts(what, gn, pipe, chunks, seen: dict) -> int:
+    """Raise unless a bf16 call's pair launches equal ``norm_kernel_launches``;
+    keeps the inputs the call gave the pair (``group_norm.inputs``) in
+    ``seen[what]`` and returns the launches.  The equality also means the
+    plain version ran 0 times: on a CUDA tensor the wrapper launches or
+    raises, so a bf16 norm that went elsewhere would leave the count short."""
+    got, want = gn.group_norm.launches, norm_kernel_launches(pipe, chunks)
+    if got != want or sum(gn.group_norm.inputs.values()) != got:
+        raise AssertionError(f"{what}: {got} GroupNorm pair launches ({sum(gn.group_norm.inputs.values())} by input),"
+                             f" want {want} from chunks {chunks}")
+    seen[what] = dict(gn.group_norm.inputs)
     return got
 
 
@@ -741,67 +714,85 @@ def norm_stats_error(torch, x, mean, inv, groups, eps, pixels=None) -> float:
     return max(err_mean, err_inv)
 
 
-def held_norm(torch, gn, what, x, wt, b, silu) -> dict:
-    """The pair against the plain version on the same x: the bf16 kernel rule
-    (max |error| within 2e-2 of the output's scale, mean within
-    MEAN_TOL_BF16 of the mean |output|) and at least NORM_EQUAL_SHARE of the
-    elements bit-equal; its statistics within NORM_STATS_TOL of
-    torch.var_mean's, a bound the statistics without each image's last
-    chunk (one block of the statistics kernel) must exceed; a second call
-    bit-equal to the first."""
+def held_norm(torch, gn, what, x, wt, b, groups, eps, silu) -> dict:
+    """The public wrapper (the models' call) against the plain version on the
+    same x: the bf16 kernel rule (max |error| within 2e-2 of the output's
+    scale, mean within MEAN_TOL_BF16 of the mean |output|) and y in
+    channels_last memory; the statistics of a second call (``_launch``)
+    within NORM_STATS_TOL of torch.var_mean's, a bound the statistics
+    without each image's last chunk (one block of the statistics kernel)
+    must exceed, and its y bit-equal to the first; and y bit for bit the
+    plain version's pass on the pair's own statistics
+    (``gn.apply_reference``), so that y can differ from the plain version
+    only in a group whose bf16 mean or inv rounds apart (``flipped_groups``,
+    logged with the share of bit-equal elements)."""
     n, c, h, w = x.shape
-    y, mean, inv = gn._launch(x, wt, b, NORM_GROUPS, NORM_EPS, silu)
-    again, _, _ = gn._launch(x, wt, b, NORM_GROUPS, NORM_EPS, silu)
-    ref = gn.group_norm_reference(x, wt, b, NORM_GROUPS, NORM_EPS, silu)
+    y = gn.group_norm(x, wt, b, groups, eps, silu)
+    again, mean, inv = gn._launch(x, wt, b, groups, eps, silu)
+    ref = gn.group_norm_reference(x, wt, b, groups, eps, silu)
     torch.cuda.synchronize()
     diff = (y.float() - ref.float()).abs()
     err, tol = diff.max().item(), 2e-2 * ref.float().abs().max().item()
     mean_err, mean_tol = diff.mean().item(), MEAN_TOL_BF16 * ref.float().abs().mean().item()
     share = (y == ref).float().mean().item()
-    stats = norm_stats_error(torch, x, mean, inv, NORM_GROUPS, NORM_EPS)
+    pass_exact = bool(torch.equal(y, gn.apply_reference(x, mean, inv, wt, b, silu)))
+    xg = x.permute(0, 2, 3, 1).reshape(n, h * w, groups, c // groups).float()
+    var_r, mean_r = torch.var_mean(xg, dim=(1, 3), correction=0)
+    flipped = ((mean.bfloat16() != mean_r.bfloat16())
+               | (inv.bfloat16() != torch.rsqrt(var_r + eps).bfloat16())).sum().item()
+    del xg
+    stats = norm_stats_error(torch, x, mean, inv, groups, eps)
     per_chunk, chunks = gn.stats_plan(n, h * w, c)
-    dropped = (norm_stats_error(torch, x, mean, inv, NORM_GROUPS, NORM_EPS, (chunks - 1) * per_chunk)
+    dropped = (norm_stats_error(torch, x, mean, inv, groups, eps, (chunks - 1) * per_chunk)
                if chunks > 1 else None)
     out = {"max_abs_err": err, "tol": tol, "mean_abs_err": mean_err, "mean_tol": mean_tol, "equal_share": share,
-           "stats_err": stats, "stats_tol": NORM_STATS_TOL, "dropped_chunk_stats_err": dropped,
-           "stats_chunks": chunks, "repeat_equal": bool(torch.equal(y, again)), "finite": bool(y.isfinite().all())}
-    if not (out["finite"] and err <= tol and mean_err <= mean_tol and share >= NORM_EQUAL_SHARE
-            and stats <= NORM_STATS_TOL and (dropped is None or dropped > NORM_STATS_TOL) and out["repeat_equal"]):
+           "pass_exact": pass_exact, "flipped_groups": flipped, "groups_total": n * groups, "stats_err": stats, "stats_tol": NORM_STATS_TOL, "dropped_chunk_stats_err": dropped,
+           "stats_chunks": chunks, "repeat_equal": bool(torch.equal(y, again)), "finite": bool(y.isfinite().all()),
+           "channels_last": y.shape == x.shape and y.is_contiguous(memory_format=torch.channels_last)}
+    if not (out["finite"] and err <= tol and mean_err <= mean_tol and pass_exact
+            and stats <= NORM_STATS_TOL and (dropped is None or dropped > NORM_STATS_TOL) and out["repeat_equal"]
+            and out["channels_last"]):
         raise AssertionError(f"{what}: GroupNorm pair against the plain version: {out}")
     return out
 
 
-def group_norm_phase(torch, gn, smi) -> list:
-    """The pair at every shape of NORM_SHAPES: the public wrapper once each
-    with the count from 0, then each shape held to the plain version
+def group_norm_phase(torch, gn, seen: dict, smi) -> list:
+    """The pair at every input the bf16 paths gave it (``seen``: path ->
+    ``group_norm.inputs`` of its counted call) and at ``NORM_RAGGED``: each
+    input once, with the count from 0, held to the plain version
     (``held_norm``) and timed beside it, one ``F.group_norm`` call (the
     library's yardstick, norm only) and the bound; a non-channels_last x
-    and an autograd-recording call must raise.  Returns the rows in
-    NORM_SHAPES' order."""
+    and an autograd-recording call must raise.  Returns a row an input, the
+    paths' in the order first seen, then the ragged ones; each row carries
+    its launches by path."""
     import torch.nn.functional as F
 
+    inputs = {}  # (N, C, H, W, groups, eps, silu) -> {path: launches}
+    for path, counts in seen.items():
+        for key, launched in counts.items():
+            inputs.setdefault(key, {})[path] = launched
+    for n, c, h, w, silu in NORM_RAGGED:
+        inputs.setdefault((n, c, h, w, NORM_GROUPS, NORM_EPS, silu), {})["ragged"] = 0
     gen = torch.Generator(device="cuda").manual_seed(8)
-    reset_norm_counts(gn)
+    gn.reset_launch_counts()
     rows, t0 = [], time.perf_counter()
-    for i, (path, n, c, h, w, silu) in enumerate(NORM_SHAPES):
+    for i, ((n, c, h, w, groups, eps, silu), by_path) in enumerate(inputs.items()):
         x, wt, b = norm_inputs(torch, gen, n, c, h, w)
-        y = gn.group_norm(x, wt, b, NORM_GROUPS, NORM_EPS, silu)
-        if gn.group_norm.launches != i + 1 or y.shape != x.shape or not y.is_contiguous(
-                memory_format=torch.channels_last):
-            raise AssertionError(f"groupnorm {(n, c, h, w)}: launches {gn.group_norm.launches} after {i + 1} calls, "
-                                 f"or output {tuple(y.shape)} not channels_last")
-        errs = held_norm(torch, gn, f"groupnorm {path} {(n, c, h, w)} silu={silu}", x, wt, b, silu)
+        errs = held_norm(torch, gn, f"groupnorm {(n, c, h, w)} groups={groups} eps={eps} silu={silu} "
+                         f"of {sorted(by_path)}", x, wt, b, groups, eps, silu)
+        if gn.group_norm.launches != i + 1:
+            raise AssertionError(f"groupnorm: {gn.group_norm.launches} wrapper launches after {i + 1} inputs")
         big = n * c * h * w > 5e7
         bound_ms, bound_by = norm_bound_ms(n, c, h, w)
-        row = {"phase": "groupnorm", "path": path, "shape": [n, c, h, w], "silu": silu, "groups": NORM_GROUPS,
-               **errs, "ms": cuda_ms(lambda: gn._launch(x, wt, b, NORM_GROUPS, NORM_EPS, silu), 10 if big else 50),
-               "plain_ms": cuda_ms(lambda: gn.group_norm_reference(x, wt, b, NORM_GROUPS, NORM_EPS, silu),
+        row = {"phase": "groupnorm", "paths": by_path, "shape": [n, c, h, w], "groups": groups, "eps": eps,
+               "silu": silu, **errs, "ms": cuda_ms(lambda: gn._launch(x, wt, b, groups, eps, silu), 10 if big else 50),
+               "plain_ms": cuda_ms(lambda: gn.group_norm_reference(x, wt, b, groups, eps, silu),
                                    3 if big else 10, warmup=1),
-               "library_ms": cuda_ms(lambda: F.group_norm(x, NORM_GROUPS, wt, b, NORM_EPS), 10 if big else 50),
+               "library_ms": cuda_ms(lambda: F.group_norm(x, groups, wt, b, eps), 10 if big else 50),
                "bound_ms": bound_ms, "bound_by": bound_by, "pair_bytes": 6 * n * c * h * w}
         log(row)
         rows.append(row)
-        del x, y
+        del x, wt, b
     x, wt, b = norm_inputs(torch, gen, 2, 320, 9, 16)
     nchw, recorded = x.contiguous(), x.detach().clone().requires_grad_()
     refusals = {}
@@ -815,9 +806,18 @@ def group_norm_phase(torch, gn, smi) -> list:
             refusals[name] = str(e)[:80]
     if "ran" in refusals.values():
         raise AssertionError(f"groupnorm: the pair took what it must refuse: {refusals}")
-    log({"phase": "groupnorm_summary", "shapes": len(rows), "seconds": time.perf_counter() - t0,
-         "refusals": refusals, "card": smi})
+    paths = sorted({p for r in rows for p in r["paths"]})
+    log({"phase": "groupnorm_summary", "inputs": len(rows),
+         "inputs_by_path": {p: sum(p in r["paths"] for r in rows) for p in paths},
+         "seconds": time.perf_counter() - t0, "refusals": refusals, "card": smi})
     return rows
+
+
+def norm_path_totals(rows: list, path: str) -> dict:
+    """One call of ``path``'s GroupNorm work as the rows time it: each input's
+    ms, plain, library and bound times its launches on that path, summed."""
+    return {k: sum(r[k] * r["paths"][path] for r in rows if path in r["paths"])
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
 
 def kernel_phase(torch, fa):
@@ -908,7 +908,7 @@ def check_rgb(what, out, shape) -> None:
             raise AssertionError(f"{what}: {name} {c.shape} (want {shape}) not finite or outside [0, 1]")
 
 
-def relight_phase(torch, attn, fa, gn, gen, smi, measure_only: bool):
+def relight_phase(torch, attn, fa, gn, gen, smi, measure_only: bool, seen: dict):
     """The relight path (``pipelines/rollingimg.py``) at full SD1.5 width with
     random weights: a 6-frame warm-up, then a timed bf16 call on 24 frames of
     720x640 (``RELIGHT_CALL``: dilations [1, 25] capped to [1, 7], 22 + 10
@@ -950,7 +950,7 @@ def relight_phase(torch, attn, fa, gn, gen, smi, measure_only: bool):
     del ref6
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    reset_norm_counts(gn)
+    gn.reset_launch_counts()
     t0 = time.perf_counter()
     with solve_probe() as probe:
         out = pipe.forward(fg, bg, verbose=True, **RELIGHT_CALL)
@@ -962,7 +962,7 @@ def relight_phase(torch, attn, fa, gn, gen, smi, measure_only: bool):
     want = relight_kernel_launches(attn, pipe, chunks, lat_hw, 3, "flash_attention_nomax")
     if launches != want:
         raise AssertionError(f"relight: launches {launches} != {want} implied by chunks {chunks}")
-    norms = held_norm_counts("relight", gn, pipe, chunks)
+    norms = held_norm_counts("relight", gn, pipe, chunks, seen)
     log({"phase": "relight", "frames": n, "res": list(RELIGHT_RES[1:]), "warmup_frames": 6, "warmup_s": warm_s,
          "total_s": total_s, "fps": n / total_s, "timings_s": pipe.last_timings, "chunks": chunks,
          "launches": launches, "norm_launches": norms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
@@ -1201,7 +1201,7 @@ W8A8_DEPTH_CORR = 0.95  # JAX's bound for the W8A8 pipeline's depth against the 
 W8A8_TP_WINDOWS = 4  # the (2, 2) mesh's W8A8 UNet chunk: 2 windows a dp rank
 
 
-def w8a8_phase(torch, attn, fa, gn, pipe, frames, ref_out, ref_s, ref_launches, smi, norms: dict) -> dict:
+def w8a8_phase(torch, attn, fa, gn, pipe, frames, ref_out, ref_s, ref_launches, smi, norms: dict, seen: dict) -> dict:
     """(a) The int8 GEMM and convolution of ``ops/quant.py`` on the card, at
     an SD2 shape each (one window of the level-0 GEGLU projection; the
     level-0 3x3 conv on one window), bit for bit against the exact product
@@ -1262,7 +1262,7 @@ def w8a8_phase(torch, attn, fa, gn, pipe, frames, ref_out, ref_s, ref_launches, 
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     fa.reset_launch_counts()
-    reset_norm_counts(gn)
+    gn.reset_launch_counts()
     t0 = time.perf_counter()
     out_q = qpipe(input_frames=frames, verbose=True, **FAST_PRESET)
     torch.cuda.synchronize()
@@ -1275,7 +1275,7 @@ def w8a8_phase(torch, attn, fa, gn, pipe, frames, ref_out, ref_s, ref_launches, 
     if launches != want or launches != ref_launches:
         raise AssertionError(f"w8a8: launches {launches} != {want} implied by chunks {chunks}, "
                              f"or != the bf16 call's {ref_launches}")
-    norms["w8a8"] = held_norm_counts("w8a8", gn, qpipe, chunks)
+    norms["w8a8"] = held_norm_counts("w8a8", gn, qpipe, chunks, seen)
     depth = depth_drift(out_q.depth_pred, ref_out.depth_pred)
     if not (depth["finite"] and depth["corr"] > W8A8_DEPTH_CORR):
         raise AssertionError(f"w8a8: depth {depth} against the bf16 call's, bound corr > {W8A8_DEPTH_CORR}")
@@ -1361,7 +1361,6 @@ def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> di
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    watch_plain_norms(gn)
     spec = torch.load(spec_path, weights_only=False)
     mesh = make_mesh(PARALLEL_MESH, "cuda")
     tp, tp_rank, _ = axis(mesh, "tp")
@@ -1401,7 +1400,7 @@ def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> di
         t0 = time.perf_counter()
         pipe, bound = random_depth_pipeline("cuda", dtype, seed=0, mesh=mesh)
         fa.reset_launch_counts()
-        reset_norm_counts(gn)
+        gn.reset_launch_counts()
         t1 = time.perf_counter()
         o = pipe(input_frames=frames, **kw)
         torch.cuda.synchronize()
@@ -1410,9 +1409,9 @@ def parallel_depth_train_rank(rank: int, spec_path: str, params_path: str) -> di
         res = {"launches": {fn.__name__: fn.launches for fn in fa.KERNELS},
                "want": attention_kernel_launches(attn, pipe, chunks, lat_hw, 3, 3, "flash_attention_nomax", tp=tp),
                "chunks": chunks, "local_heads": [c[2] for c in kernel_calls(attn, pipe.unet.config, 3, *lat_hw, tp)],
-               "norms": norm_counts(gn),  # bf16: the pair on every norm; fp32: F.group_norm
-               "norms_want": {"group_norm": norm_kernel_launches(pipe, chunks) if dtype == torch.bfloat16 else 0,
-                              "plain": 0},
+               "norms": gn.group_norm.launches,  # bf16: the pair on every norm; fp32: F.group_norm
+               "norms_want": norm_kernel_launches(pipe, chunks) if dtype == torch.bfloat16 else 0,
+               "norm_inputs": list(gn.group_norm.inputs.items()),  # (input, launches) pairs: JSON-safe
                "score_bound": bound, "nomax_allowed": attn.nomax_allowed(),
                "windows": _max_err(torch, torch.cat(pipe.last_window_latents), spec[f"{name}_windows"]),
                "setup_s": t1 - t0, "call_s": t2 - t1}
@@ -1470,13 +1469,12 @@ def parallel_relight_rank(rank: int, spec_path: str) -> dict:
     from rollingdepth_torch.parallel.mesh import axis, make_mesh
     from rollingdepth_torch.utils.synthetic import random_relight_pipeline
 
-    watch_plain_norms(gn)
     spec = torch.load(spec_path, weights_only=False)
     mesh = make_mesh(RELIGHT_MESH, "cuda")
     t0 = time.perf_counter()
     pipe, _ = random_relight_pipeline("cuda", torch.bfloat16, seed=0, mesh=mesh)
     fa.reset_launch_counts()
-    reset_norm_counts(gn)
+    gn.reset_launch_counts()
     t1 = time.perf_counter()
     o = pipe.forward(spec["fg"].cuda(), spec["bg"].cuda(), **spec["call"])
     torch.cuda.synchronize()
@@ -1486,7 +1484,8 @@ def parallel_relight_rank(rank: int, spec_path: str) -> dict:
     return {"rank": rank, "backend": dist.get_backend(), "dp": axis(mesh, "dp")[:2], "chunks": chunks,
             "launches": {fn.__name__: fn.launches for fn in fa.KERNELS},
             "want": relight_kernel_launches(attn, pipe, chunks, lat_hw, 3, "flash_attention_nomax"),
-            "norms": norm_counts(gn), "norms_want": {"group_norm": norm_kernel_launches(pipe, chunks), "plain": 0},
+            "norms": gn.group_norm.launches, "norms_want": norm_kernel_launches(pipe, chunks),
+            "norm_inputs": list(gn.group_norm.inputs.items()),  # (input, launches) pairs: JSON-safe
             "windows": [_max_err(torch, g, r) for g, r in zip(o.snippet_ls, spec["snippet_ls"])],
             "rgb": _max_err(torch, rgb, spec["rgb"]), "setup_s": t1 - t0, "call_s": time.perf_counter() - t1}
 
@@ -1586,8 +1585,14 @@ def parallel_phase(torch, smi, refs: dict, tmp: str) -> dict:
     for check, rs in (("bfloat16", ranks), ("float32", ranks)):
         launches[check] = [r[check]["launches"] for r in rs]
     launches["relight"] = [r["launches"] for r in relight]
-    launches["norms"] = [r["bfloat16"]["norms"]["group_norm"] for r in ranks]
-    launches["relight_norms"] = [r["norms"]["group_norm"] for r in relight]
+    launches["norms"] = [r["bfloat16"]["norms"] for r in ranks]
+    launches["relight_norms"] = [r["norms"] for r in relight]
+    # the inputs the ranks gave the pair, launches summed over the ranks
+    launches["norm_inputs"] = {path: {} for path in ("parallel_ranks", "parallel_relight_ranks")}
+    for path, results in (("parallel_ranks", [r["bfloat16"] for r in ranks]), ("parallel_relight_ranks", relight)):
+        for r in results:
+            for key, launched in r["norm_inputs"]:
+                launches["norm_inputs"][path][key] = launches["norm_inputs"][path].get(key, 0) + launched
     return launches
 
 
@@ -1643,8 +1648,6 @@ def main(argv=None) -> int:
     t1 = time.perf_counter()
     variant_rows, variant_launches = variants_phase(torch, fv, bench)
     log({"phase": "slice2_seconds", "conv": t1 - t0, "variants": time.perf_counter() - t1})
-    watch_plain_norms(gn)
-    norm_rows = group_norm_phase(torch, gn, smi)
 
     # ---- main path at full SD2 width
     dtype = torch.bfloat16
@@ -1670,7 +1673,7 @@ def main(argv=None) -> int:
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    reset_norm_counts(gn)
+    gn.reset_launch_counts()
     t0 = time.perf_counter()
     with solve_probe() as fast_probe:
         out = pipe(input_frames=frames, verbose=True, **fast)
@@ -1683,7 +1686,8 @@ def main(argv=None) -> int:
     want = attention_kernel_launches(attn, pipe, chunks, lat_hw, 3, 3, "flash_attention_nomax")
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} implied by chunks {chunks}")
-    norms = {"main": held_norm_counts("main", gn, pipe, chunks)}
+    seen = {}  # path -> the inputs its counted call gave the GroupNorm pair
+    norms = {"main": held_norm_counts("main", gn, pipe, chunks, seen)}
     log({"phase": "main", "frames": n_frames, "res": [height, width], "warmup_s": warm_s, "total_s": total_s,
          "fps": n_frames / total_s, "timings_s": pipe.last_timings, "chunks": chunks, "launches": launches,
          "norm_launches": norms["main"],
@@ -1701,21 +1705,21 @@ def main(argv=None) -> int:
 
     # ---- the W8A8 serving mode on the same frames and noise
     t0 = time.perf_counter()
-    w8a8_ref = w8a8_phase(torch, attn, fa, gn, pipe, frames, out, total_s, launches, smi, norms)
+    w8a8_ref = w8a8_phase(torch, attn, fa, gn, pipe, frames, out, total_s, launches, smi, norms, seen)
     log({"phase": "w8a8_seconds", "seconds": time.perf_counter() - t0})
 
     # ---- the same path with the max-free gate closed: the running-max kernel
     attn.set_nomax_allowed(False)
     try:
         fa.reset_launch_counts()
-        reset_norm_counts(gn)
+        gn.reset_launch_counts()
         out_g = pipe(input_frames=frames[:12], **fast)
         torch.cuda.synchronize()
         launches_g = {fn.__name__: fn.launches for fn in fa.KERNELS}
         chunks_g = dict(pipe.last_chunks)
     finally:
         attn.set_nomax_allowed(True)
-    norms["gate_closed"] = held_norm_counts("gate_closed", gn, pipe, chunks_g)
+    norms["gate_closed"] = held_norm_counts("gate_closed", gn, pipe, chunks_g, seen)
     want_g = attention_kernel_launches(attn, pipe, chunks_g, lat_hw, 3, 3, "flash_attention_max")
     if launches_g != want_g or not torch.isfinite(torch.from_numpy(out_g.depth_pred)).all():
         raise AssertionError(f"gate-closed launches {launches_g} != {want_g}, or non-finite depth")
@@ -1735,7 +1739,7 @@ def main(argv=None) -> int:
     del warm, again
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    reset_norm_counts(gn)
+    gn.reset_launch_counts()
     t0 = time.perf_counter()
     out_f = pipe(input_frames=full_frames, verbose=True, **FULL_PRESET)
     torch.cuda.synchronize()
@@ -1748,7 +1752,7 @@ def main(argv=None) -> int:
                                        "flash_attention_nomax")
     if launches_f != want_f:
         raise AssertionError(f"full: launches {launches_f} != {want_f} implied by chunks {chunks_f}")
-    norms["full"] = held_norm_counts("full", gn, pipe, chunks_f)
+    norms["full"] = held_norm_counts("full", gn, pipe, chunks_f, seen)
     log({"phase": "full", "frames": n_frames, "res": list(FULL_RES[1:]), "warmup_frames": 12,
          "warmup_s": warm_full_s, "total_s": full_s, "fps": n_frames / full_s, "timings_s": pipe.last_timings,
          "chunks": chunks_f, "launches": launches_f, "norm_launches": norms["full"],
@@ -1817,7 +1821,7 @@ def main(argv=None) -> int:
                                  dtype=torch.uint8)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    reset_norm_counts(gn)
+    gn.reset_launch_counts()
     t0 = time.perf_counter()
     with solve_probe() as paper_probe:
         out_p = pipe32(input_frames=paper_frames, verbose=True, **PAPER_PRESET)
@@ -1834,8 +1838,8 @@ def main(argv=None) -> int:
                                        "flash_attention_nomax")
     if launches_p != want_p:
         raise AssertionError(f"paper: launches {launches_p} != {want_p} implied by chunks {chunks_p}")
-    norms["paper"] = norm_counts(gn)  # fp32: every norm on F.group_norm
-    if norms["paper"] != {"group_norm": 0, "plain": 0}:
+    norms["paper"] = gn.group_norm.launches  # fp32: every norm on F.group_norm
+    if norms["paper"] != 0:
         raise AssertionError(f"paper (fp32): GroupNorm counts {norms['paper']}, want none")
     log({"phase": "paper", "frames": PAPER_FRAMES, "res": list(PAPER_RES[1:]), "total_s": paper_s,
          "fps": PAPER_FRAMES / paper_s, "timings_s": pipe32.last_timings, "chunks": chunks_p,
@@ -1859,7 +1863,7 @@ def main(argv=None) -> int:
 
     # ---- the relight path at 720x640, full SD1.5 width
     t0 = time.perf_counter()
-    launches_r, relight_ref, norms["relight"] = relight_phase(torch, attn, fa, gn, gen, smi, measure_only)
+    launches_r, relight_ref, norms["relight"] = relight_phase(torch, attn, fa, gn, gen, smi, measure_only, seen)
     log({"phase": "relight_seconds", "seconds": time.perf_counter() - t0})
 
     # ---- the training path at full SD2 width, fp32, 480x640
@@ -1877,6 +1881,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches_par = parallel_phase(torch, smi, {"depth": par_refs, "relight": relight_ref}, tmp)
     log({"phase": "parallel_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- the GroupNorm pair at every input the bf16 paths gave it, against its plain version
+    norm_rows = group_norm_phase(torch, gn, {**seen, **launches_par["norm_inputs"]}, smi)
 
     # ---- the multihost demo on the card (its default): 2 workers, each clip bit for bit against one process
     t0 = time.perf_counter()
@@ -1948,15 +1955,22 @@ def main(argv=None) -> int:
         kernels.append(entry(name, tpu, flash_src, f"scripts/bench_flash_variants.py:{line}",
                              variant_launches[name], variant_rows[name], False, **extra))
     # the GroupNorm pair: XLA's reduction and loop fusion written by hand (no TPU kernel)
-    norm_phases = {**{k: v["group_norm"] for k, v in norms.items()}, "parallel_ranks": launches_par["norms"],
+    # its row: the main path's input with the most elements moved over the call (elements x launches);
+    # main_path sums the times over every input of the call, paths_with_inputs counts the inputs a path gave it
+    norm_phases = {**norms, "parallel_ranks": launches_par["norms"],
                    "parallel_relight_ranks": launches_par["relight_norms"]}
-    norm_keys = ("path", "shape", "silu", "max_abs_err", "equal_share", "stats_err", "ms", "plain_ms", "library_ms",
-                 "bound_ms")
+    main_rows = [r for r in norm_rows if "main" in r["paths"]]
+    top = max(main_rows, key=lambda r: math.prod(r["shape"]) * r["paths"]["main"])
+    norm_keys = ("shape", "eps", "silu", "max_abs_err", "equal_share", "flipped_groups", "ms", "bound_ms")
     kernels.append(entry("group_norm", None, "rollingdepth_torch/csrc/group_norm.cu",
-                         "rollingdepth_tpu/models/layers.py:126 (XLA fusion)", norms["main"]["group_norm"],
-                         norm_rows[0], True, design="stats+merge+fused pass", launches_by_phase=norm_phases,
-                         silu=norm_rows[0]["silu"], library="F.group_norm (norm only)",
-                         shapes=[{k: r[k] for k in norm_keys} for r in norm_rows[1:]]))
+                         "rollingdepth_tpu/models/layers.py:126 (XLA fusion)", norms["main"], top, True,
+                         design="stats+merge+fused pass", launches_by_phase=norm_phases, silu=top["silu"],
+                         eps=top["eps"], library="F.group_norm (norm only)",
+                         main_path=norm_path_totals(norm_rows, "main"),
+                         inputs_by_path={p: sum(p in r["paths"] for r in norm_rows)
+                                         for p in sorted({p for r in norm_rows for p in r["paths"]})},
+                         main_inputs=[dict({k: r[k] for k in norm_keys}, launches=r["paths"]["main"])
+                                      for r in main_rows]))
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

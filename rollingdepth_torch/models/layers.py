@@ -4,10 +4,10 @@ Counterpart of ``rollingdepth_tpu/models/layers.py``.  Modules run in
 NCHW (on CUDA the models keep activations in ``channels_last`` memory
 format, which cuDNN prefers); the models convert at their public NHWC
 boundary.  Norms keep the JAX package's precision:
-- ``group_norm``: fp32 statistics; fp32 inputs normalise in fp32
-  (``F.group_norm``), bf16 inputs normalise in bf16 (as ``layers.group_norm``
-  does) through ``ops/group_norm.py``: on the card its hand-written pair,
-  which also takes the silu after the norm (``silu=True``), as XLA fuses it;
+- ``group_norm``: ``ops/group_norm.py``, fp32 statistics; fp32 inputs
+  normalise in fp32 (``F.group_norm``), bf16 inputs normalise in bf16 (as
+  ``layers.group_norm`` does): on the card its hand-written pair, which
+  also takes the silu after the norm (``silu=True``), as XLA fuses it;
 - ``layer_norm``: computed in fp32, cast back.
 Self-attention goes through ``ops.attention.dot_product_attention``.
 ``Attention`` and ``FeedForward`` also run as Megatron tp shards
@@ -35,12 +35,8 @@ from ..parallel.sharding import copy_to_tp, reduce_from_tp
 
 def group_norm(norm: nn.GroupNorm, x: torch.Tensor, eps: Optional[float] = None, silu: bool = False) -> torch.Tensor:
     """GroupNorm over an NCHW tensor with ``norm``'s groups, weight and bias,
-    then ``F.silu`` when ``silu``."""
-    eps = norm.eps if eps is None else eps
-    if x.dtype == torch.float32:
-        out = F.group_norm(x, norm.num_groups, norm.weight, norm.bias, eps)
-        return F.silu(out) if silu else out
-    return gn.group_norm(x, norm.weight, norm.bias, norm.num_groups, eps, silu=silu)
+    then ``F.silu`` when ``silu`` (``ops/group_norm.group_norm``)."""
+    return gn.group_norm(x, norm.weight, norm.bias, norm.num_groups, norm.eps if eps is None else eps, silu=silu)
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:

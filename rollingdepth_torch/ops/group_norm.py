@@ -17,14 +17,16 @@ the mean and of ``inv`` can differ from the plain version, where the fp32
 statistics differ in their last bits.
 
 ``group_norm(x, weight, bias, groups, eps, silu=False)`` takes x
-``[N, C, H, W]``.  On a CPU tensor it runs ``group_norm_reference``.  On a
-CUDA tensor it launches the pair (building it at first use,
-``ops/_build.py``) or raises: x must be bf16 in ``channels_last`` memory
-(how the models keep activations on the card; nothing is copied), C a
-multiple of 8 up to 4096, and no autograd may be recording (the pair has no
-backward; training runs fp32, which ``models/layers.py`` sends to
-``F.group_norm``).  There is no fallback.  The wrapper counts its launches
-in ``group_norm.launches``.
+``[N, C, H, W]``.  An fp32 x, on any device, and any CPU tensor take
+``group_norm_reference`` (fp32: ``F.group_norm``, one native kernel; this
+is where the dtype is chosen).  Any other CUDA tensor launches the pair
+(building it at first use, ``ops/_build.py``) or raises: x must be bf16 in
+``channels_last`` memory (how the models keep activations on the card;
+nothing is copied), C a multiple of 8 up to 4096, and no autograd may be
+recording (the pair has no backward; training runs fp32).  There is no
+fallback.  The wrapper counts its launches in ``group_norm.launches`` and,
+by input, in ``group_norm.inputs`` (``(N, C, H, W, groups, eps, silu)``:
+launches), so a caller can hold the pair at every input a run gave it.
 """
 
 from __future__ import annotations
@@ -47,17 +49,28 @@ def group_norm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     """The JAX package's ``layers.group_norm`` in PyTorch, op by op, then
     ``F.silu`` when ``silu``.  fp32: ``F.group_norm``.  Other dtypes: fp32
     mean and variance (correction 0) over each group, ``inv = rsqrt(var +
-    eps)``, then in x's dtype, rounding after each op: ``(x - mean) * inv``,
-    times the weight, plus the bias (both cast to x's dtype)."""
+    eps)``, then ``apply_reference``."""
     if x.dtype == torch.float32:
         out = F.group_norm(x, groups, weight, bias, eps)
-    else:
-        n, c, h, w = x.shape
-        xg = x.permute(0, 2, 3, 1).reshape(n, h * w, groups, c // groups)  # a view in channels_last
-        var, mean = torch.var_mean(xg.float(), dim=(1, 3), keepdim=True, correction=0)
-        inv = torch.rsqrt(var + eps)
-        out = ((xg - mean.to(x.dtype)) * inv.to(x.dtype)).reshape(n, h, w, c).permute(0, 3, 1, 2)
-        out = out * weight.to(x.dtype)[:, None, None] + bias.to(x.dtype)[:, None, None]
+        return F.silu(out) if silu else out
+    n, c, h, w = x.shape
+    xg = x.permute(0, 2, 3, 1).reshape(n, h * w, groups, c // groups)  # a view in channels_last
+    var, mean = torch.var_mean(xg.float(), dim=(1, 3), correction=0)
+    return apply_reference(x, mean, torch.rsqrt(var + eps), weight, bias, silu)
+
+
+def apply_reference(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, silu: bool = False) -> torch.Tensor:
+    """The plain version's pass over x ``[N, C, H, W]`` with fp32 statistics
+    ``mean``, ``inv`` ``[N, G]``: in x's dtype, rounding after each op,
+    ``(x - mean) * inv``, times the weight, plus the bias (statistics,
+    weight and bias cast to x's dtype), then ``F.silu`` when ``silu``."""
+    n, c, h, w = x.shape
+    groups = mean.shape[1]
+    xg = x.permute(0, 2, 3, 1).reshape(n, h * w, groups, c // groups)
+    m, i = mean.to(x.dtype)[:, None, :, None], inv.to(x.dtype)[:, None, :, None]
+    out = ((xg - m) * i).reshape(n, h, w, c).permute(0, 3, 1, 2)
+    out = out * weight.to(x.dtype)[:, None, None] + bias.to(x.dtype)[:, None, None]
     return F.silu(out) if silu else out
 
 
@@ -127,16 +140,19 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: i
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
                silu: bool = False) -> torch.Tensor:
     """GroupNorm of x ``[N, C, H, W]`` (then silu when ``silu``): the plain
-    version on a CPU tensor, the CUDA pair on a CUDA tensor."""
+    version on a CPU tensor and on fp32, the CUDA pair on other CUDA tensors."""
     _check(x, weight, bias, groups)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or x.dtype == torch.float32:
         return group_norm_reference(x, weight, bias, groups, eps, silu)
     y, _, _ = _launch(x, weight, bias, groups, eps, silu)
     group_norm.launches += 1
+    key = (*x.shape, groups, eps, silu)
+    group_norm.inputs[key] = group_norm.inputs.get(key, 0) + 1
     return y
 
 
 group_norm.launches = 0
+group_norm.inputs = {}
 
 KERNELS = (group_norm,)
 
@@ -144,3 +160,4 @@ KERNELS = (group_norm,)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.inputs = {}

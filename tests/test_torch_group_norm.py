@@ -15,7 +15,9 @@ JAX, the dispatch, the kernels' statistics arithmetic, and the launch formula.
 - (c) The refusals of the CUDA path (x not in channels_last memory, autograd
   recording, a dtype or width the kernels do not take) come from the
   wrapper's own checks, before the library is touched, so they show on CPU
-  tensors; a CPU call launches nothing and counts nothing.
+  tensors; a CPU call launches nothing and counts nothing; a call off the
+  CPU counts its launch and records its input (``group_norm.inputs``); fp32
+  takes ``F.group_norm`` on any device.
 - (d) The module imports, and runs on the CPU, where there is no nvcc.
 - (e) The GroupNorms of one call of the tiny UNet and VAE, and of a tiny
   bf16 pipeline call, equal ``chip_smoke.py``'s formula for the card's launches.
@@ -198,6 +200,34 @@ def test_cpu_call_launches_nothing(monkeypatch):
     assert torch.equal(got, gn.group_norm_reference(x, w, b, 8, 1e-6, silu=True))
 
 
+def test_card_call_counts_its_launches_by_input(monkeypatch):
+    """Off the CPU (a ``meta`` tensor stands in for the card, ``_launch``
+    stubbed) each call counts one launch and records its input."""
+    monkeypatch.setattr(gn, "_launch", lambda x, *a: (torch.empty_like(x), None, None))
+    gn.reset_launch_counts()
+    x, w, b = (t.to("meta") for t in _args())
+    for silu in (True, False, True):
+        assert gn.group_norm(x, w, b, 8, 1e-6, silu=silu).shape == x.shape
+    assert gn.group_norm.launches == 3
+    assert gn.group_norm.inputs == {(2, 64, 4, 5, 8, 1e-6, True): 2, (2, 64, 4, 5, 8, 1e-6, False): 1}
+    gn.reset_launch_counts()
+    assert gn.group_norm.launches == 0 and gn.group_norm.inputs == {}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_fp32_takes_f_group_norm_on_any_device(monkeypatch, device):
+    """fp32 never reaches the kernels: ``F.group_norm`` (then ``F.silu``)
+    on the card as on the CPU, with autograd (training runs fp32)."""
+    monkeypatch.setattr(gn, "_launch", lambda *a, **kw: pytest.fail("fp32 reached the launch"))
+    gn.reset_launch_counts()
+    x, w, b = (t.to(device) for t in _args(dtype=torch.float32))
+    w = nn.Parameter(w)
+    y = gn.group_norm(x, w, b, 8, 1e-6, silu=True)
+    assert y.requires_grad and gn.group_norm.launches == 0
+    if device == "cpu":
+        assert torch.equal(y, F.silu(F.group_norm(x, 8, w, b, 1e-6)))
+
+
 @pytest.mark.parametrize("bad", ["shape", "groups"])
 def test_wrapper_checks_its_arguments(bad):
     x, w, b = _args()
@@ -365,6 +395,7 @@ def test_fused_pass_with_kernel_statistics_gives_the_plain_bits(shape):
     m = mean.bfloat16()[:, g][:, :, None, None]
     i = inv.bfloat16()[:, g][:, :, None, None]
     got = ((x - m) * i) * wt[:, None, None] + bs[:, None, None]
+    assert torch.equal(gn.apply_reference(x, mean, inv, wt, bs), got)  # chip_smoke.held_norm's exact rule
     ref = gn.group_norm_reference(x, wt, bs, GROUPS, 1e-6)
     xg = x.permute(0, 2, 3, 1).reshape(n, h * w, GROUPS, c // GROUPS)
     var_p, mean_p = torch.var_mean(xg.float(), dim=(1, 3), correction=0)

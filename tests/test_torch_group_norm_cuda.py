@@ -1,17 +1,25 @@
-"""The bf16 GroupNorm pair on the card (``-m cuda``; every test skips without one).
+"""The bf16 GroupNorm pair on the card (``-m cuda``; every card test skips without one).
 
 - The pair (``ops/group_norm.py``, ``csrc/group_norm.cu``) against its plain
-  version at each distinct bf16 norm input of the ``fast`` path (a UNet
-  chunk: 24 images at 54x96 with 320 channels, 27x48 with 640, 14x24 and
-  7x12 with 1280; a VAE chunk: 4 images at 432x768 with 128, 216x384 with
-  256, 108x192 and 54x96 with 512), with and without the silu, held as
-  ``chip_smoke.py`` holds it (``held_norm``: the bf16 kernel rule, at least
-  ``NORM_EQUAL_SHARE`` of the elements bit-equal, the fp32 statistics within
-  ``NORM_STATS_TOL`` of ``torch.var_mean``'s, two calls bit-equal);
-- the same at ragged H*W and at 10, 20, 30 and 80 channels a group (the up
-  blocks' concatenated inputs, not 16-byte aligned);
-- the wrapper counts one launch a call, and returns channels_last;
+  version at every distinct bf16 norm input of a full ``fast`` chunk
+  (``FAST_INPUTS``: one SD2 UNet call on 24 images at 54x96 latents, one VAE
+  encode of 4 frames at 432x768 and one decode of 4 latents at 54x96; 27
+  inputs, the up blocks' concatenated widths and the VAE decoder's
+  upsampled levels among them), each with its groups, eps and silu, held as
+  ``chip_smoke.py`` holds it (``held_norm``: the public wrapper's output by
+  the bf16 kernel rule, bit for bit the plain version's pass on the pair's
+  own statistics, the fp32 statistics within ``NORM_STATS_TOL`` of
+  ``torch.var_mean``'s, two calls bit-equal);
+- the same at ragged H*W and at 10, 20, 30, 80 and 4 channels a group
+  (``chip_smoke.NORM_RAGGED``; not 16-byte aligned);
+- the wrapper counts one launch a call, records it by input, and returns
+  channels_last;
 - an x in NCHW memory, and a call autograd would record, raise.
+
+``FAST_INPUTS`` is read off the models themselves: the same calls on the
+``meta`` device (shapes only, nothing computed or allocated), with the
+wrapper recording its inputs.  ``test_fast_inputs_are_the_models_norms``
+runs on the CPU too and holds the list to ``chip_smoke.py``'s launch formula.
 
 The card's machine has no JAX: ``python -m pytest tests/test_torch_group_norm_cuda.py -m cuda --noconftest``.
 """
@@ -22,9 +30,40 @@ import torch
 import chip_smoke as cs
 from rollingdepth_torch.ops import group_norm as gn
 
-FAST_SHAPES = [(24, 320, 54, 96), (24, 640, 27, 48), (24, 1280, 14, 24), (24, 1280, 7, 12),
-               (4, 128, 432, 768), (4, 256, 216, 384), (4, 512, 108, 192), (4, 512, 54, 96)]
-RAGGED_SHAPES = [(3, 320, 37, 53), (2, 640, 13, 29), (5, 960, 11, 7), (1, 2560, 3, 5), (2, 128, 1, 1)]
+UNET_CHUNK, VAE_CHUNK, FRAME_HW = 24, 4, (432, 768)  # fast: snippet_batch 8 windows of 3; max_vae_bs 4
+
+
+def fast_norm_inputs() -> dict:
+    """{(N, C, H, W, groups, eps, silu): calls} of one ``fast`` UNet chunk, VAE
+    encode and VAE decode at full SD2 width, traced on the ``meta`` device."""
+    from rollingdepth_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from rollingdepth_torch.models.vae import AutoencoderKL, VAEConfig
+
+    calls, wrapper = {}, gn.group_norm
+
+    def record(x, weight, bias, groups, eps, silu=False):
+        key = (*x.shape, groups, eps, silu)
+        calls[key] = calls.get(key, 0) + 1
+        return torch.empty_like(x)
+
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    lat = (FRAME_HW[0] // 8, FRAME_HW[1] // 8)
+    gn.group_norm = record
+    try:
+        unet = UNet2DConditionModel(UNetConfig.sd21(), device="meta").to(torch.bfloat16)
+        vae = AutoencoderKL(VAEConfig(), device="meta").to(torch.bfloat16)
+        with torch.no_grad():
+            unet(torch.empty((UNET_CHUNK // 3, 3) + lat + (8,), **meta), 999, torch.empty((1, 77, 1024), **meta))
+            vae.encode_mean(torch.empty((VAE_CHUNK,) + FRAME_HW + (3,), **meta))
+            vae.decode(torch.empty((VAE_CHUNK,) + lat + (4,), **meta))
+    finally:
+        gn.group_norm = wrapper
+    return calls
+
+
+FAST_CALLS = fast_norm_inputs()
+FAST_INPUTS = sorted(FAST_CALLS)
+RAGGED_INPUTS = [(n, c, h, w, cs.NORM_GROUPS, cs.NORM_EPS, silu) for n, c, h, w, silu in cs.NORM_RAGGED]
 
 
 def _inputs(shape, seed=0):
@@ -34,13 +73,30 @@ def _inputs(shape, seed=0):
     return cs.norm_inputs(torch, gen, *shape)
 
 
+def test_fast_inputs_are_the_models_norms():
+    """The list covers one UNet call, one encode and one decode, as many
+    norms as ``chip_smoke.py`` counts launches for, at the chunk sizes."""
+    from rollingdepth_torch.models.unet import UNetConfig
+    from rollingdepth_torch.models.vae import VAEConfig
+
+    by_n = {n: sum(k for (n2, *_), k in FAST_CALLS.items() if n2 == n) for n in (UNET_CHUNK, VAE_CHUNK)}
+    assert by_n[UNET_CHUNK] == cs.unet_norm_calls(UNetConfig.sd21())
+    assert by_n[VAE_CHUNK] == cs.vae_norm_calls(VAEConfig(), "encode") + cs.vae_norm_calls(VAEConfig(), "decode")
+    assert len(FAST_INPUTS) == 27
+    for must in ((4, 256, 432, 768, 32, 1e-6, True), (24, 2560, 7, 12, 32, 1e-5, True),
+                 (24, 320, 54, 96, 32, 1e-6, False)):
+        assert must in FAST_CALLS
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("silu", [True, False], ids=["norm_silu", "norm"])
-@pytest.mark.parametrize("shape", FAST_SHAPES + RAGGED_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_pair_against_the_plain_version(shape, silu):
-    x, w, b = _inputs(shape)
-    out = cs.held_norm(torch, gn, f"{shape} silu={silu}", x, w, b, silu)
-    assert out["repeat_equal"] and out["equal_share"] >= cs.NORM_EQUAL_SHARE
+@pytest.mark.parametrize("key", FAST_INPUTS + RAGGED_INPUTS,
+                         ids=lambda k: "x".join(map(str, k[:4])) + f"-eps{k[5]:g}-" + ("norm_silu" if k[6] else "norm"))
+def test_pair_against_the_plain_version(key):
+    n, c, h, w, groups, eps, silu = key
+    x, wt, b = _inputs((n, c, h, w))
+    with torch.no_grad():
+        out = cs.held_norm(torch, gn, f"{key}", x, wt, b, groups, eps, silu)
+    assert out["repeat_equal"] and out["pass_exact"] and out["channels_last"]
 
 
 @pytest.mark.cuda
@@ -48,8 +104,9 @@ def test_wrapper_counts_and_keeps_channels_last():
     x, w, b = _inputs((2, 320, 9, 16))
     gn.reset_launch_counts()
     with torch.no_grad():
-        ys = [gn.group_norm(x, w, b, 32, 1e-6, silu=s) for s in (True, False)]
-    assert gn.group_norm.launches == 2
+        ys = [gn.group_norm(x, w, b, 32, 1e-6, silu=s) for s in (True, False, True)]
+    assert gn.group_norm.launches == 3
+    assert gn.group_norm.inputs == {(2, 320, 9, 16, 32, 1e-6, True): 2, (2, 320, 9, 16, 32, 1e-6, False): 1}
     for y in ys:
         assert y.shape == x.shape and y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
 
