@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .pipelines.snippets import snippet_index_matrix
+from .utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,16 +176,19 @@ class _Solve:
         """``num_iterations`` steps from the reset state: replays of the
         captured step (captured at the first run), or eager steps."""
         if not graph:
-            self.reset()
-            for _ in range(self.cfg.num_iterations):
-                self.step()
+            with span("rd.solve.replay"):
+                self.reset()
+                for _ in range(self.cfg.num_iterations):
+                    self.step()
             return
         with torch.cuda.device(self.device):
             if self.graph is None:
-                self._capture()
-            self.reset()
-            for _ in range(self.cfg.num_iterations):
-                self.graph.replay()
+                with span("rd.solve.capture"):
+                    self._capture()
+            with span("rd.solve.replay"):
+                self.reset()
+                for _ in range(self.cfg.num_iterations):
+                    self.graph.replay()
 
     def _capture(self) -> None:
         """Warm the step up on a side stream, then capture one step.  Other
@@ -286,22 +290,25 @@ class DepthAligner:
         for m, s in zip(index_mats, snippet_ls):
             if tuple(m.shape) != tuple(s.shape[:2]):
                 raise ValueError(f"index matrix {m.shape} does not match group {tuple(s.shape)}")
-        dev = snippet_ls[0].device
-        idx = [torch.as_tensor(np.asarray(m).reshape(-1), device=dev, dtype=torch.long) for m in index_mats]
-        table, counts = frame_table(index_mats, seq_len)
-        counts = torch.as_tensor(counts, device=dev, dtype=torch.float32)
+        with span("rd.solve", {"windows": sum(s.shape[0] for s in snippet_ls), "frames": seq_len}):
+            with span("rd.solve.prepare"):
+                dev = snippet_ls[0].device
+                idx = [torch.as_tensor(np.asarray(m).reshape(-1), device=dev, dtype=torch.long) for m in index_mats]
+                table, counts = frame_table(index_mats, seq_len)
+                counts = torch.as_tensor(counts, device=dev, dtype=torch.float32)
 
-        b, f = cfg.border, cfg.factor
-        mn = torch.stack([g.float().amin() for g in snippet_ls]).amin()
-        views = []
-        for g in snippet_ls:
-            v = g[:, :, b:-b:f, b:-b:f, :] if channels_last else g[:, :, :, b:-b:f, b:-b:f]
-            views.append((v.float() - mn).reshape(g.shape[0], g.shape[1], -1))
+                b, f = cfg.border, cfg.factor
+                mn = torch.stack([g.float().amin() for g in snippet_ls]).amin()
+                views = []
+                for g in snippet_ls:
+                    v = g[:, :, b:-b:f, b:-b:f, :] if channels_last else g[:, :, :, b:-b:f, b:-b:f]
+                    views.append((v.float() - mn).reshape(g.shape[0], g.shape[1], -1))
 
-        scales, shifts, history = self._optimize(views, idx, table, counts)
-        merged = self._merge(snippet_ls, torch.as_tensor(table, device=dev), counts, scales, shifts, mn,
-                             restore_shift, seq_len)
-        return merged, scales, shifts, history
+            scales, shifts, history = self._optimize(views, idx, table, counts)
+            with span("rd.solve.merge"):
+                merged = self._merge(snippet_ls, torch.as_tensor(table, device=dev), counts, scales, shifts, mn,
+                                     restore_shift, seq_len)
+            return merged, scales, shifts, history
 
     def _optimize(self, views, idx, table: np.ndarray, counts, graph: bool = True):
         """The views go into one [n_windows, w_max, P] tensor (a shorter
@@ -334,7 +341,8 @@ class DepthAligner:
             solve = _Solve(key)
             if graph:
                 _SOLVES[key] = solve
-        solve.load(views, np.append(place, 0)[table], ~empty, idx, counts)
+        with span("rd.solve.load"):
+            solve.load(views, np.append(place, 0)[table], ~empty, idx, counts)
         solve.run(graph)
         # copies: a later solve of the same key overwrites the static tensors
         s_out, t_out = solve.params.clone()

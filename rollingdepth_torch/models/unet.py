@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import layers as L
 
 
@@ -191,45 +192,46 @@ class UNet2DConditionModel(nn.Module):
         [S or 1, L, D] -> epsilon (or v) prediction [S, n, h, w, C_out]."""
         cfg = self.config
         s, n, h, w, cin = x.shape
-        timesteps = torch.as_tensor(timesteps, device=x.device).reshape(-1).expand(s)
-        if context.shape[0] == 1 and s > 1:
-            context = context.expand(s, *context.shape[1:])
-        context = context.to(x.dtype)
+        with span("rd.unet", {"windows": s, "frames": n}):
+            timesteps = torch.as_tensor(timesteps, device=x.device).reshape(-1).expand(s)
+            if context.shape[0] == 1 and s > 1:
+                context = context.expand(s, *context.shape[1:])
+            context = context.to(x.dtype)
 
-        t_emb = L.timestep_embedding(timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
-                                     cfg.freq_shift).to(x.dtype)
-        temb = self.time_embedding(t_emb).repeat_interleave(n, dim=0)  # [(S n), 4*bo0]
+            t_emb = L.timestep_embedding(timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
+                                         cfg.freq_shift).to(x.dtype)
+            temb = self.time_embedding(t_emb).repeat_interleave(n, dim=0)  # [(S n), 4*bo0]
 
-        hidden = x.reshape(s * n, h, w, cin).permute(0, 3, 1, 2)
-        fmt = torch.channels_last if x.is_cuda else torch.contiguous_format
-        hidden = self.conv_in(hidden.contiguous(memory_format=fmt))
+            hidden = x.reshape(s * n, h, w, cin).permute(0, 3, 1, 2)
+            fmt = torch.channels_last if x.is_cuda else torch.contiguous_format
+            hidden = self.conv_in(hidden.contiguous(memory_format=fmt))
 
-        res_stack = [hidden]
-        for block in self.down_blocks:
-            for j, resnet in enumerate(block.resnets):
-                hidden = resnet(hidden, temb)
-                if len(block.attentions):
-                    hidden = block.attentions[j](hidden, context, n)
-                res_stack.append(hidden)
-            if hasattr(block, "downsamplers"):
-                hidden = block.downsamplers[0](hidden)
-                res_stack.append(hidden)
+            res_stack = [hidden]
+            for block in self.down_blocks:
+                for j, resnet in enumerate(block.resnets):
+                    hidden = resnet(hidden, temb)
+                    if len(block.attentions):
+                        hidden = block.attentions[j](hidden, context, n)
+                    res_stack.append(hidden)
+                if hasattr(block, "downsamplers"):
+                    hidden = block.downsamplers[0](hidden)
+                    res_stack.append(hidden)
 
-        mid = self.mid_block
-        hidden = mid.resnets[0](hidden, temb)
-        hidden = mid.attentions[0](hidden, context, n)
-        hidden = mid.resnets[1](hidden, temb)
+            mid = self.mid_block
+            hidden = mid.resnets[0](hidden, temb)
+            hidden = mid.attentions[0](hidden, context, n)
+            hidden = mid.resnets[1](hidden, temb)
 
-        for block in self.up_blocks:
-            for j, resnet in enumerate(block.resnets):
-                hidden = torch.cat([hidden, res_stack.pop()], dim=1)
-                hidden = resnet(hidden, temb)
-                if len(block.attentions):
-                    hidden = block.attentions[j](hidden, context, n)
-            if hasattr(block, "upsamplers"):
-                # match the next skip's size (odd latent sizes)
-                target: Optional[Tuple[int, int]] = tuple(res_stack[-1].shape[2:]) if res_stack else None
-                hidden = block.upsamplers[0](hidden, target)
+            for block in self.up_blocks:
+                for j, resnet in enumerate(block.resnets):
+                    hidden = torch.cat([hidden, res_stack.pop()], dim=1)
+                    hidden = resnet(hidden, temb)
+                    if len(block.attentions):
+                        hidden = block.attentions[j](hidden, context, n)
+                if hasattr(block, "upsamplers"):
+                    # match the next skip's size (odd latent sizes)
+                    target: Optional[Tuple[int, int]] = tuple(res_stack[-1].shape[2:]) if res_stack else None
+                    hidden = block.upsamplers[0](hidden, target)
 
-        hidden = self.conv_out(L.group_norm(self.conv_norm_out, hidden, silu=True))
-        return hidden.permute(0, 2, 3, 1).reshape(s, n, h, w, cfg.out_channels)
+            hidden = self.conv_out(L.group_norm(self.conv_norm_out, hidden, silu=True))
+            return hidden.permute(0, 2, 3, 1).reshape(s, n, h, w, cfg.out_channels)

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import layers as L
 
 
@@ -148,11 +149,13 @@ class AutoencoderKL(nn.Module):
 
     def encode_mean(self, x: torch.Tensor) -> torch.Tensor:
         """[N, H, W, 3] in [-1, 1] -> [N, h, w, latent] scaled posterior mean."""
-        moments = self.quant_conv(self.encoder(self._nchw(x)))
-        mean = moments[:, : self.config.latent_channels]
-        return (mean * self.config.scaling_factor).permute(0, 2, 3, 1)
+        with span("rd.vae.encode", {"frames": x.shape[0]}):
+            moments = self.quant_conv(self.encoder(self._nchw(x)))
+            mean = moments[:, : self.config.latent_channels]
+            return (mean * self.config.scaling_factor).permute(0, 2, 3, 1)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """[N, h, w, latent] -> [N, H, W, 3]."""
-        z = self.post_quant_conv(self._nchw(z / self.config.scaling_factor))
-        return self.decoder(z).permute(0, 2, 3, 1)
+        with span("rd.vae.decode", {"frames": z.shape[0]}):
+            z = self.post_quant_conv(self._nchw(z / self.config.scaling_factor))
+            return self.decoder(z).permute(0, 2, 3, 1)

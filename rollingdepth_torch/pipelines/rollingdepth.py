@@ -47,7 +47,7 @@ from ..ops.quant import is_quantized, to_compute_dtype_
 from ..parallel.mesh import axis
 from ..parallel.sharding import gather_rows, row_block, shard_rows
 from ..utils.device import resolve_device
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, clip_span
 from .snippets import (
     cap_max_dilation,
     chain_stride_index_matrix,
@@ -132,6 +132,7 @@ class RollingDepthPipeline:
         self.last_chunks: Dict[str, int] = {}
         # the last call's denoised windows, per dilation [S, n, h, w, 4] (every window, also under dp)
         self.last_window_latents: List[torch.Tensor] = []
+        self.clip_calls = 0  # forward's calls: the clip id of its rd.clip span
 
     def __call__(
         self,
@@ -196,6 +197,7 @@ class RollingDepthPipeline:
                                            align_corners=False, antialias=False).cpu().numpy()
         return out
 
+    @clip_span
     @torch.no_grad()
     def forward(
         self,

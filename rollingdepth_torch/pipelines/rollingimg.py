@@ -59,7 +59,7 @@ from ..ops.quant import is_quantized, to_compute_dtype_
 from ..parallel.sharding import gather_rows, shard_rows
 from ..schedulers.dpmsolver import DPMState
 from ..utils.device import resolve_device
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, clip_span
 from .rollingdepth import unet_chunks
 from .snippets import cap_max_dilation, chain_stride_index_matrix, partition_index_matrix, snippet_index_matrix
 
@@ -293,6 +293,7 @@ class RollingImgPipeline:
         self.last_timings: Dict[str, float] = {}
         # chunks of the last call (this rank's): VAE encodes and decodes, t2i and window UNet calls
         self.last_chunks: Dict[str, int] = {}
+        self.clip_calls = 0  # forward's calls: the clip id of its rd.clip span
 
     def __call__(
         self,
@@ -376,6 +377,7 @@ class RollingImgPipeline:
     def _noise(self, draw) -> torch.Tensor:
         return as_draw(draw, self.device)
 
+    @clip_span
     @torch.no_grad()
     def forward(
         self,

@@ -103,3 +103,110 @@ def test_device_shares_counts_kernel_time_inside_each_span():
     assert phases["coalign"]["idle_share"] == pytest.approx(0.83)
     assert call["host_ms"] == 1.1 and call["device_busy_ms"] == pytest.approx(0.26)
     assert device_shares(events[3:])[1] is None
+
+
+def _spans(prof, prefixes=("rd.", "rollingdepth.", "rollingimg.")):
+    """The profiler's ranges named under ``prefixes``: (name, start, end), by start."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CPU and e.name().startswith(prefixes)), key=lambda s: s[1])
+
+
+def _inside(spans, outer, prefix):
+    """The spans named under ``prefix`` that lie within span ``outer``, by start."""
+    return [s for s in spans if s[0].startswith(prefix) and outer[1] <= s[1] and s[2] <= outer[2]]
+
+
+def _check_solves(spans, n):
+    solves = [s for s in spans if s[0] == "rd.solve"]
+    assert len(solves) == n
+    for solve in solves:
+        stages = [s[0] for s in _inside(spans, solve, "rd.solve.")]
+        assert stages == ["rd.solve.prepare", "rd.solve.load", "rd.solve.replay", "rd.solve.merge"]
+
+
+@pytest.fixture(scope="module")
+def depth_pipe():
+    _, unet_params, vae_params = _jax_parts()
+    text = np.random.default_rng(5).standard_normal((1, 2, 8)).astype(np.float32)
+    return _torch_pipe(unet_params, vae_params, text)
+
+
+DEPTH_CALL = dict(dilations=[1, 3], merge_in_latent=True, refine_step=2, refine_start_dilation=3, max_vae_bs=4,
+                  latent_coalign_kwargs={"num_iterations": 2})
+
+
+def test_depth_call_spans_each_layer(depth_pipe, monkeypatch):
+    """Under a profiler a depth call (with refinement) is one ``rd.clip``
+    holding its phases, one ``rd.unet`` per UNet chunk of the snippets and of
+    refinement, one ``rd.vae.*`` per VAE chunk, and the solve's stages in
+    order; on the CPU nothing is captured and no phase syncs a card."""
+    monkeypatch.delenv(tprof.TRACE_ENV, raising=False)
+    frames, noise = _inputs(n=8)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        depth_pipe.forward(frames, init_noise=noise, **DEPTH_CALL)
+    spans, chunks = _spans(prof), depth_pipe.last_chunks
+    clips = [s for s in spans if s[0] == tprof.CLIP_SPAN]
+    assert len(clips) == 1
+    phases = _inside(spans, clips[0], "rollingdepth.")
+    assert [s[0] for s in phases] == [f"rollingdepth.{p}" for p in depth_pipe.last_timings]
+    assert len(phases) == len([s for s in spans if s[0].startswith("rollingdepth.")])
+    names = [s[0] for s in spans]
+    assert chunks["refine_unet"] > 0
+    assert names.count("rd.unet") == chunks["unet"] + chunks["refine_unet"]
+    assert (names.count("rd.vae.encode"), names.count("rd.vae.decode")) == (chunks["encode"], chunks["decode"])
+    _check_solves(spans, 1)
+    assert "rd.solve.capture" not in names and tprof.PHASE_SYNC_SPAN not in names
+    assert all(clips[0][1] <= s[1] and s[2] <= clips[0][2] for s in spans)
+
+
+def test_spans_leave_outputs_alone_and_cost_no_range_untraced(depth_pipe, monkeypatch):
+    """With no profiler running no ``record_function`` is entered, and the
+    outputs are the same bits with a profiler as without."""
+    monkeypatch.delenv(tprof.TRACE_ENV, raising=False)
+    frames, noise = _inputs(n=8)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced = depth_pipe.forward(frames, init_noise=noise, **DEPTH_CALL)
+
+    def refuse(self):
+        raise AssertionError(f"record_function {self.name!r} entered with no profiler running")
+
+    monkeypatch.setattr(torch.autograd.profiler.record_function, "__enter__", refuse)
+    calls = depth_pipe.clip_calls
+    plain = depth_pipe.forward(frames, init_noise=noise, **DEPTH_CALL)
+    assert depth_pipe.clip_calls == calls + 1
+    np.testing.assert_array_equal(plain.depth_pred, traced.depth_pred)
+    np.testing.assert_array_equal(plain.depth_coaligned, traced.depth_coaligned)
+    with tprof.PhaseTimer(verbose=True).phase("x"), tprof.annotate("rollingdepth.x"), tprof.span("rd.x", {"a": 1}):
+        pass
+    assert tprof.span("rd.a") is tprof.span("rd.b")
+
+
+def test_span_is_a_profiler_range_with_its_args():
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tprof.span("rd.test_range", {"call": 3}):
+            torch.ones(3).sum()
+    assert [s[0] for s in _spans(prof)] == ["rd.test_range"]
+
+
+def test_relight_call_spans_each_layer(monkeypatch):
+    """A relight call is one ``rd.clip`` holding its ``rollingimg.`` phases,
+    a ``rd.unet`` per UNet chunk, a ``rd.vae.*`` per VAE chunk and one solve
+    a channel."""
+    from tests.test_torch_relight import STEPS, build_pair, frames
+
+    monkeypatch.delenv(tprof.TRACE_ENV, raising=False)
+    _, tpipe = build_pair()
+    kw = dict(dilations=[1, 2], cap_dilation=False, init_mode="shared_noise", seed=2,
+              coalign_kwargs={"num_iterations": 1}, **STEPS)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tpipe.forward(frames(), frames(seed=1), **kw)
+    spans, chunks = _spans(prof), tpipe.last_chunks
+    clips = [s for s in spans if s[0] == tprof.CLIP_SPAN]
+    assert len(clips) == 1 and all(clips[0][1] <= s[1] and s[2] <= clips[0][2] for s in spans)
+    assert [s[0] for s in _inside(spans, clips[0], "rollingimg.")] == [f"rollingimg.{p}" for p in tpipe.last_timings]
+    names = [s[0] for s in spans]
+    assert names.count("rd.unet") == chunks["unet"]
+    assert (names.count("rd.vae.encode"), names.count("rd.vae.decode")) == (chunks["encode"], chunks["decode"])
+    _check_solves(spans, 3)
