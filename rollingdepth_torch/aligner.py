@@ -17,12 +17,13 @@ a call gives the same bits on every run.  The solve sums each target with
 one [T, K, P] gather and a reduction over the K slots; the merge and
 refinement, at full resolution, slot by slot (``frame_sum``).
 
-The Adam step is optax's ``adam`` written out in tensor ops
-(``adam_update_``) and reads only device tensors built before the solve,
-the step count and the loss history included.  On the card it is captured
-once per shape as a CUDA graph and replayed ``num_iterations`` times, as the
-JAX package runs the whole solve as one jitted ``lax.scan`` cached per shape
-(``_SOLVES``); on the CPU the same step runs eagerly.
+On the card the whole solve, every Adam step, is one launch of a
+hand-written kernel (``ops/coalign.py``, ``csrc/coalign.cu``), as the JAX
+package runs it as one jitted ``lax.scan``; its static tensors are cached
+per shape (``_SOLVES``), as JAX caches its scans.  On the CPU the plain
+version runs: the same step op by op with autograd (``_Solve.step``), optax's
+``adam`` written out in tensor ops (``adam_update_``), reading only device
+tensors built before the solve, the step count and the loss history included.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .ops.coalign import coalign
 from .pipelines.snippets import snippet_index_matrix
 from .utils.profiling import span
 
@@ -88,11 +90,10 @@ def frame_sum(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.5, 0.9, 1e-8  # the JAX package's optax.adam(lr, b1=0.5, b2=0.9, eps=1e-8)
-WARMUP_STEPS = 3  # eager steps on a side stream before a capture, as PyTorch's whole-network capture asks
 
-# Captured solves, shared by every DepthAligner as the JAX package's
-# _SOLVE_CACHE shares its jitted scans (each caller builds a new aligner):
-# solve_key -> _Solve.  Unbounded, as JAX's is: a graph pool a shape.
+# The kernel's solves' static tensors, shared by every DepthAligner as the
+# JAX package's _SOLVE_CACHE shares its jitted scans (each caller builds a
+# new aligner): solve_key -> _Solve.  Unbounded, as JAX's is.
 _SOLVES: Dict[tuple, "_Solve"] = {}
 
 
@@ -100,8 +101,8 @@ def adam_update_(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu
                  count: torch.Tensor, lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
                  eps: float = ADAM_EPS) -> None:
     """``optax.adam(lr, b1, b2, eps)``'s update of ``params`` in place, in
-    ``optax.scale_by_adam``'s order and from device tensors only, so that a
-    CUDA graph can hold it: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2
+    ``optax.scale_by_adam``'s order and from device tensors only (the kernel
+    rounds in the same order): ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2
     + b2 nu``, ``count += 1`` (a one-element integer tensor), the bias
     corrections ``1 - b**count`` in the parameters' dtype from the device
     count, then ``params -= lr * mu_hat / (sqrt(nu_hat) + eps)``."""
@@ -114,9 +115,9 @@ def adam_update_(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu
 
 
 def solve_key(view_shapes, table_shape, masked: bool, cfg: AlignerConfig, device) -> tuple:
-    """What a captured solve is specific to: the views' shapes, the frame
-    table's shape and whether it has empty slots, the inverse term, the
-    config (the iterations included) and the device."""
+    """What a solve's static tensors are specific to: the views' shapes, the
+    frame table's shape and whether it has empty slots, the inverse term,
+    the config (the iterations included) and the device."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -125,11 +126,13 @@ def solve_key(view_shapes, table_shape, masked: bool, cfg: AlignerConfig, device
 
 
 class _Solve:
-    """One solve's static tensors and its step, for one ``solve_key``.
-    ``load`` writes a call's views and tables into the tensors; ``step`` runs
-    one Adam step on them and reads nothing else (no host sync, no tensor
-    made from the host), so that one capture serves every later solve of the
-    key."""
+    """One solve's static tensors, for one ``solve_key``: the padded views,
+    the parameters (every window's s, then its t), the moments and the
+    history, which the kernel writes; and the eager step's tables and step
+    count.  ``load`` writes a call's views (and, for the eager step, its
+    tables); ``run`` solves from s = 1, t = 0; ``step`` runs one Adam step
+    of the plain version and reads only these tensors (no host sync, no
+    tensor made from the host)."""
 
     def __init__(self, key: tuple):
         view_shapes, (n_frames, k), masked, self.use_inv, self.cfg, self.device = key
@@ -140,6 +143,7 @@ class _Solve:
         self.denom = float(sum(self.widths) * n_frames * self.p_dim)
         dev, n_all = self.device, sum(self.sizes)
         self.v_all = torch.zeros((n_all, max(self.widths), self.p_dim), device=dev)
+        self.slots = np.zeros((n_frames, k), np.int64)  # each (frame, slot)'s row of v_all, -1 empty
         self.rows = torch.zeros((n_frames, k), dtype=torch.long, device=dev)
         self.keep = torch.ones((n_frames, k, 1), device=dev) if masked else None
         self.idx = [torch.zeros(s * w, dtype=torch.long, device=dev) for s, w in zip(self.sizes, self.widths)]
@@ -149,17 +153,17 @@ class _Solve:
         self.mu, self.nu = torch.zeros_like(self.params), torch.zeros_like(self.params)
         self.count = torch.zeros(1, dtype=torch.long, device=dev)
         self.history = torch.zeros((self.cfg.num_iterations, 3), device=dev)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.captures = 0
-        self.pool_bytes = 0  # the captured graph's private memory pool
 
-    def load(self, views, rows: np.ndarray, keep: np.ndarray, idx, counts: torch.Tensor) -> None:
+    def load(self, views, slots: np.ndarray, idx, counts: torch.Tensor, kernel: bool) -> None:
         self.v_all.zero_()
         for v, lo in zip(views, self.bounds[:-1]):
             self.v_all[lo : lo + v.shape[0], : v.shape[1]] = v
-        self.rows.copy_(torch.from_numpy(rows))
+        self.slots = slots
+        if kernel:  # the kernel reads the views and the host's table only
+            return
+        self.rows.copy_(torch.from_numpy(np.maximum(slots, 0)))
         if self.keep is not None:
-            self.keep.copy_(torch.from_numpy(keep)[..., None])
+            self.keep.copy_(torch.from_numpy(slots >= 0)[..., None])
         for dst, src in zip(self.idx, idx):
             dst.copy_(src)
         self.cnt.copy_(counts.clamp(min=1.0)[:, None])
@@ -172,45 +176,19 @@ class _Solve:
         for x in (self.mu, self.nu, self.count, self.history):
             x.zero_()
 
-    def run(self, graph: bool) -> None:
-        """``num_iterations`` steps from the reset state: replays of the
-        captured step (captured at the first run), or eager steps."""
-        if not graph:
-            with span("rd.solve.replay"):
-                self.reset()
-                for _ in range(self.cfg.num_iterations):
-                    self.step()
-            return
-        with torch.cuda.device(self.device):
-            if self.graph is None:
-                with span("rd.solve.capture"):
-                    self._capture()
-            with span("rd.solve.replay"):
-                self.reset()
-                for _ in range(self.cfg.num_iterations):
-                    self.graph.replay()
-
-    def _capture(self) -> None:
-        """Warm the step up on a side stream, then capture one step.  Other
-        threads may use the card meanwhile (the CLI's save pool copies the
-        last clip to the host): ``thread_local`` refuses unsafe calls only
-        from this thread."""
-        self.reset()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(min(WARMUP_STEPS, self.cfg.num_iterations)):
+    def run(self, kernel: bool) -> None:
+        """``num_iterations`` steps from the reset state: one launch of the
+        kernel, or the eager steps."""
+        cfg = self.cfg
+        with span("rd.solve.replay"):
+            if kernel:
+                coalign(self.v_all, self.slots, self.sizes, self.params, self.mu, self.nu, self.history, lr=cfg.lr,
+                        b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, lmda2=cfg.lmda2, lmda3=cfg.lmda3,
+                        loss_scale=cfg.loss_scale, depth_loss_weight=cfg.depth_loss_weight, denom=self.denom)
+                return
+            self.reset()
+            for _ in range(cfg.num_iterations):
                 self.step()
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()  # as the capture does first; here so that the pool's bytes can be read
-        reserved = torch.cuda.memory_reserved()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.step()
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.graph = graph
-        self.captures += 1
 
     @torch.enable_grad()  # callers may run under no_grad (the pipelines do)
     def step(self) -> None:
@@ -310,21 +288,22 @@ class DepthAligner:
                                      restore_shift, seq_len)
             return merged, scales, shifts, history
 
-    def _optimize(self, views, idx, table: np.ndarray, counts, graph: bool = True):
+    def _optimize(self, views, idx, table: np.ndarray, counts, kernel: bool = True):
         """The views go into one [n_windows, w_max, P] tensor (a shorter
         group's missing frames are zero rows that nothing reads), so each
-        step applies (s, t) once.  Each target is ``a[rows].sum(1)`` over the
-        table's [T, K] rows: one gather, then one reduction over K (PyTorch's,
-        with no atomic add: its order is fixed by the shape and the device),
-        with an empty slot's row masked to zero.
+        step applies (s, t) once.  Each target sums the table's [T, K] rows,
+        with an empty slot's row masked to zero: in the kernel slot by slot
+        from the left, in the eager step as one gather and one reduction
+        over K (PyTorch's, with no atomic add: its order is fixed by the
+        shape and the device).
 
         Everything that reads the host (the row table, its mask, the frame
-        indices) is built here; ``_Solve.step`` touches only device tensors.
-        On the card the step is captured once per ``solve_key`` as a CUDA
-        graph and replayed ``num_iterations`` times, the counterpart of the
-        JAX package's one jitted ``lax.scan``; ``graph=False`` runs the same
-        step eagerly (the card's tests and ``chip_smoke.py`` hold the two
-        bit for bit).  On the CPU the step always runs eagerly."""
+        indices) is built here.  On the card the whole solve is one launch
+        of the kernel (``ops/coalign.py``), the counterpart of the JAX
+        package's one jitted ``lax.scan``, on static tensors cached per
+        ``solve_key``; ``kernel=False`` runs the plain version's steps
+        eagerly instead (the card's tests and ``chip_smoke.py`` hold the two
+        to the JAX tolerances).  On the CPU the steps always run eagerly."""
         cfg = self.config
         dev = views[0].device
         sizes = [v.shape[0] for v in views]
@@ -333,17 +312,17 @@ class DepthAligner:
         # each window row of the table (groups flattened row-major, in order) at its place in v_all
         place = np.concatenate([((lo + np.arange(v.shape[0]))[:, None] * w_max + np.arange(v.shape[1])).reshape(-1)
                                 for v, lo in zip(views, bounds[:-1])])
-        empty = table == place.size
-        key = solve_key([tuple(v.shape) for v in views], table.shape, bool(empty.any()), cfg, dev)
-        graph = graph and dev.type == "cuda" and cfg.num_iterations > 0
-        solve = _SOLVES.get(key) if graph else None
+        slots = np.append(place, -1)[table]  # an empty slot (row R) is -1
+        key = solve_key([tuple(v.shape) for v in views], table.shape, bool((slots < 0).any()), cfg, dev)
+        kernel = kernel and dev.type == "cuda" and cfg.num_iterations > 0
+        solve = _SOLVES.get(key) if kernel else None
         if solve is None:
             solve = _Solve(key)
-            if graph:
+            if kernel:
                 _SOLVES[key] = solve
         with span("rd.solve.load"):
-            solve.load(views, np.append(place, 0)[table], ~empty, idx, counts)
-        solve.run(graph)
+            solve.load(views, slots, idx, counts, kernel)
+        solve.run(kernel)
         # copies: a later solve of the same key overwrites the static tensors
         s_out, t_out = solve.params.clone()
         return ([s_out[bounds[i] : bounds[i + 1]] for i in range(len(views))],

@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("flash_attn", "conv3x3", "group_norm")
+SOURCES = ("flash_attn", "conv3x3", "group_norm", "coalign")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

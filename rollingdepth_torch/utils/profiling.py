@@ -13,8 +13,8 @@ work, and its time includes the profiler's own cost.
 Below the phases, ``span`` opens a range at each layer boundary while a
 profiler runs: ``rd.clip`` (a pipeline's ``forward``, ``clip_span``),
 ``rd.unet``, ``rd.vae.encode``, ``rd.vae.decode``, ``rd.solve`` and its
-stages ``rd.solve.prepare``, ``.load``, ``.capture``, ``.replay`` and
-``.merge``, and ``rd.phase_sync`` (a phase's card sync).  They share the
+stages ``rd.solve.prepare``, ``.load``, ``.replay`` (the iterations: on
+the card the kernel's one launch) and ``.merge``, and ``rd.phase_sync`` (a phase's card sync).  They share the
 profiler's clock with the card's kernels and the runtime's calls, so a
 trace can put each kernel, idle gap and host sync under the span that
 caused it; those inside a phase appear in the phase's trace under

@@ -5,6 +5,8 @@ every ``csrc/*.cuh`` header and of the nvcc flags, so an edit to any of
 them builds a new library, and an untouched tree reuses the old one.  Only
 paths are computed here: no nvcc, no card."""
 
+import os
+
 import pytest
 
 from rollingdepth_torch.ops import _build
@@ -48,6 +50,15 @@ def test_files_other_than_sources_and_headers_do_not_count(tree):
 
 
 def test_the_package_sources_hash():
-    """The real tree: both sources and the shared header are found."""
+    """The real tree: every source and the shared header are found."""
     paths = {name: _build._lib_path(name) for name in _build.SOURCES}
     assert len(set(paths.values())) == len(_build.SOURCES)
+
+
+@pytest.mark.parametrize("name", ["flash_attn", "conv3x3", "group_norm", "coalign"])
+def test_each_kernel_source_is_built(name):
+    """The four kernel sources are in ``SOURCES`` (``build_all`` compiles
+    each) and in the tree, each with a C entry point."""
+    assert name in _build.SOURCES
+    with open(os.path.join(_build._CSRC, name + ".cu")) as f:
+        assert 'extern "C" int rd_' in f.read()
