@@ -21,6 +21,13 @@ the prompt chunk encoding and the RMBG matting helpers):
 5. every window frame decoded to RGB, ``max_vae_bs`` at a time;
 6. R, G and B co-aligned each on its own (``aligner.py``) over the windows
    actually run, then each normalised to [0, 1].
+The phases (``last_timings``, ``rollingimg.<phase>`` spans) are
+``encode`` (1), ``init`` (2-3), ``snippet_infer`` (4), ``decode`` (5) and
+``coalign`` (6).  Under a profiler the t2i init is an ``rd.t2i`` span and
+each sampler step, with its noise draw, an ``rd.sampler`` span.
+``last_counters`` counts what the last call did: ``iclight_unet_calls``,
+``base_unet_calls``, ``sampler_steps`` and, with a provider that counts
+them (``SeededNoise``), ``noise_generators`` seeded.
 
 Randomness: torch cannot draw JAX's numbers, so every Gaussian draw comes
 from a noise provider keyed as the JAX pipeline keys its PRNG: the shared
@@ -59,7 +66,7 @@ from ..ops.quant import is_quantized, to_compute_dtype_
 from ..parallel.sharding import gather_rows, shard_rows
 from ..schedulers.dpmsolver import DPMState
 from ..utils.device import resolve_device
-from ..utils.profiling import PhaseTimer, clip_span
+from ..utils.profiling import PhaseTimer, clip_span, span
 from .rollingdepth import unet_chunks
 from .snippets import cap_max_dilation, chain_stride_index_matrix, partition_index_matrix, snippet_index_matrix
 
@@ -109,13 +116,16 @@ class SeededNoise:
     - ``frames(ids, shape)``: the t2i init, a map per frame id;
     - ``steps(ids, step, shape)``: an SDE step's draw per window (or, in the
       t2i init, frame) id.
-    Each returns fp32 ``[len(ids), *shape]`` (``shape`` for ``shared``)."""
+    Each returns fp32 ``[len(ids), *shape]`` (``shape`` for ``shared``).
+    ``generators`` counts the generators seeded."""
 
     def __init__(self, seed: int, device):
         self.seed, self.device = int(seed), torch.device(device)
+        self.generators = 0
 
     def draw(self, shape, *key: int) -> torch.Tensor:
         """N(0, 1) of ``shape`` from the generator of (seed, *key)."""
+        self.generators += 1
         gen = torch.Generator(device=self.device).manual_seed(_mix(self.seed, *key))
         return torch.randn(tuple(shape), generator=gen, device=self.device)
 
@@ -293,6 +303,8 @@ class RollingImgPipeline:
         self.last_timings: Dict[str, float] = {}
         # chunks of the last call (this rank's): VAE encodes and decodes, t2i and window UNet calls
         self.last_chunks: Dict[str, int] = {}
+        # what the last call did (this rank's), counted where it happens: module docstring
+        self.last_counters: Dict[str, int] = {}
         self.clip_calls = 0  # forward's calls: the clip id of its rd.clip span
 
     def __call__(
@@ -418,10 +430,12 @@ class RollingImgPipeline:
         if cap_dilation:
             dilations = [cap_max_dilation(seq_len, sl, d, verbose) for sl, d in zip(snippet_lengths, dilations)]
         noise = SeededNoise(seed, self.device) if noise is None else noise
+        generators = getattr(noise, "generators", None)
         # per-phase times; ROLLINGDEPTH_TRACE_DIR adds a trace of each (utils/profiling.py)
         timer = PhaseTimer(verbose, prefix="rollingimg", device=self.device)
         timings = timer.timings
         chunks: Dict[str, int] = {}
+        counters = {"iclight_unet_calls": 0, "base_unet_calls": 0, "sampler_steps": 0}
         dtype, dev = self.dtype, self.device
 
         # ---- 1. encode fg and bg into the 8-channel condition
@@ -456,7 +470,7 @@ class RollingImgPipeline:
                 init_latents = self._noise(noise.shared((h, w, 4))).expand(seq_len, h, w, 4).to(dtype)
             elif init_mode == "t2i":
                 init_latents = self.t2i_init_latents(seq_len, h, w, prompt_embeds, t_start, timesteps, sigmas, noise,
-                                                     num_inference_steps, chunks)
+                                                     num_inference_steps, chunks, counters)
             elif init_mode == "passthrough":
                 # gen-2: the fg latents noised to the entry sigma with one shared map
                 shared = self._noise(noise.shared((h, w, 4))).expand(fg_lat.shape)
@@ -464,8 +478,8 @@ class RollingImgPipeline:
             else:
                 raise ValueError(f"init_mode {init_mode!r}")
 
-        # ---- 4-5. every dilation's windows: denoise, decode
-        with timer.phase("snippet_infer_decode"):
+        # ---- 4. every dilation's windows denoised
+        with timer.phase("snippet_infer"):
             def make_idx(snip_len, dilation, stride):
                 if turbo:  # a partition of each chain; wins over strides
                     return partition_index_matrix(seq_len, snip_len, dilation)
@@ -475,16 +489,24 @@ class RollingImgPipeline:
 
             idx_ls = [make_idx(sl, d, st) for d, sl, st in zip(dilations, snippet_lengths, strides)]
             run = dict(prompt_embeds=prompt_embeds, timesteps=timesteps[t_start:], sigmas=sigmas,
-                       begin_index=t_start, noise=noise, vae_bs=max_vae_bs, num_inference_steps=num_inference_steps,
-                       cond_first=cond_first, chunks=chunks)
+                       begin_index=t_start, noise=noise, num_inference_steps=num_inference_steps,
+                       cond_first=cond_first, chunks=chunks, counters=counters)
             if len(set(snippet_lengths)) == 1:
                 # every window of every dilation in one pass; SDE draws keyed by the per-dilation row
                 ids = np.concatenate([np.arange(m.shape[0]) for m in idx_ls])
-                decoded = self._infer_snippets(cond_latent, init_latents, np.concatenate(idx_ls), ids, **run)
-                groups = list(torch.split(decoded, [m.shape[0] for m in idx_ls]))
+                lats = [self._infer_snippets(cond_latent, init_latents, np.concatenate(idx_ls), ids, **run)]
+                rows = [sum(m.shape[0] for m in idx_ls)]
             else:
-                groups = [self._infer_snippets(cond_latent, init_latents, m, np.arange(m.shape[0]), **run)
-                          for m in idx_ls]  # [S, n, 3, H, W]
+                lats = [self._infer_snippets(cond_latent, init_latents, m, np.arange(m.shape[0]), **run)
+                        for m in idx_ls]
+                rows = [m.shape[0] for m in idx_ls]
+
+        # ---- 5. every window frame decoded
+        with timer.phase("decode"):
+            groups = [self._decode_windows(lat, s_all, max_vae_bs, chunks) for lat, s_all in zip(lats, rows)]
+            if len(groups) < len(idx_ls):
+                groups = list(torch.split(groups[0], [m.shape[0] for m in idx_ls]))  # [S, n, 3, H, W]
+            del lats
 
         # ---- 6. per-channel co-alignment, each channel to [0, 1]
         with timer.phase("coalign"):
@@ -504,6 +526,9 @@ class RollingImgPipeline:
             logger.info("phase timings: %s", timer.summary())
         self.last_timings = timings
         self.last_chunks = chunks
+        if generators is not None:
+            counters["noise_generators"] = noise.generators - generators
+        self.last_counters = counters
         if fetch_output:
             fetch = lambda x: x.float().cpu().numpy()  # noqa: E731
             channels = [fetch(c) for c in channels]
@@ -526,44 +551,48 @@ class RollingImgPipeline:
     @torch.no_grad()
     def t2i_init_latents(self, seq_len: int, h: int, w: int, prompt_embeds, t_start: int, timesteps, sigmas,
                          noise, num_inference_steps: int = NUM_INFERENCE_STEPS,
-                         chunks: Optional[Dict[str, int]] = None) -> torch.Tensor:
+                         chunks: Optional[Dict[str, int]] = None,
+                         counters: Optional[Dict[str, int]] = None) -> torch.Tensor:
         """Per-frame intermediate text-to-image latents [N, h, w, 4] (what
         the reference loads from a precomputed blob): the base UNet on each
         frame alone (one-frame windows) for the first ``t_start`` steps of
         the full schedule, from per-frame noise, SDE draws keyed by frame."""
         chunks = {} if chunks is None else chunks
+        counters = {} if counters is None else counters
         if self.base_unet is None:
             logger.warning("no base UNet available; falling back to shared noise init")
             return self._noise(noise.shared((h, w, 4))).expand(seq_len, h, w, 4).to(self.dtype)
         bs = self.snippet_batch
         out = []
-        for c in range(0, seq_len, bs):
-            fids = np.arange(c, min(c + bs, seq_len))
-            lat = self._noise(noise.frames(fids, (h, w, 4))).to(self.dtype)
-            state = DPMState.init()
-            for i in range(t_start):
-                eps = self.base_unet(lat[:, None], int(timesteps[i]), prompt_embeds)[:, 0]
-                step_noise = self._noise(noise.steps(fids, i, (h, w, 4)))
-                prev, state = self.scheduler.step(eps.float(), i, lat.float(), sigmas, num_inference_steps, state,
-                                                  noise=step_noise)
-                lat = prev.to(self.dtype)
-            out.append(lat)
+        with span("rd.t2i", {"frames": seq_len, "steps": t_start}):
+            for c in range(0, seq_len, bs):
+                fids = np.arange(c, min(c + bs, seq_len))
+                lat = self._noise(noise.frames(fids, (h, w, 4))).to(self.dtype)
+                state = DPMState.init()
+                for i in range(t_start):
+                    eps = self.base_unet(lat[:, None], int(timesteps[i]), prompt_embeds)[:, 0]
+                    with span("rd.sampler", {"frames": len(fids), "step": i}):
+                        step_noise = self._noise(noise.steps(fids, i, (h, w, 4)))
+                        prev, state = self.scheduler.step(eps.float(), i, lat.float(), sigmas, num_inference_steps,
+                                                          state, noise=step_noise)
+                        lat = prev.to(self.dtype)
+                    _count(counters, base_unet_calls=1, sampler_steps=1)
+                out.append(lat)
         chunks["t2i_unet"] = chunks.get("t2i_unet", 0) + -(-seq_len // bs) * t_start
         return torch.cat(out)
 
     def _infer_snippets(self, cond_latent, init_latents, index_matrix: np.ndarray, snippet_ids: np.ndarray, *,
-                        prompt_embeds, timesteps, sigmas, begin_index: int, noise, vae_bs: int,
-                        num_inference_steps: int, cond_first: bool, chunks: Dict[str, int]) -> torch.Tensor:
+                        prompt_embeds, timesteps, sigmas, begin_index: int, noise, num_inference_steps: int,
+                        cond_first: bool, chunks: Dict[str, int], counters: Dict[str, int]) -> torch.Tensor:
         """Windows [S, n] of the frame latents: the SDE denoise from
         ``begin_index``, at most ``snippet_batch`` windows at a time (a W8A8
-        UNet's grouped as JAX groups them, ``rollingdepth.unet_chunks``), then every
-        window frame decoded.  Returns [S, n, 3, H, W] in the pipeline dtype.
-        With a mesh this dp rank runs its block of the windows and the
-        decoded blocks are all-gathered."""
-        s_all = index_matrix.shape[0]
+        UNet's grouped as JAX groups them, ``rollingdepth.unet_chunks``).
+        Returns the denoised latents [S, n, h, w, 4] in the pipeline dtype;
+        with a mesh, this dp rank's block of the windows (``_decode_windows``
+        gathers them)."""
         index_matrix = shard_rows(index_matrix, self.mesh, pad=True)
         snippet_ids = shard_rows(snippet_ids, self.mesh, pad=True)
-        s, n = index_matrix.shape
+        s = index_matrix.shape[0]
         sb, dtype = self.snippet_batch, self.dtype
         idx = torch.as_tensor(index_matrix, device=cond_latent.device, dtype=torch.long)
         lats = []
@@ -575,13 +604,27 @@ class RollingImgPipeline:
             for i, t in enumerate(timesteps):
                 x = torch.cat([cond_c, lat] if cond_first else [lat, cond_c], dim=-1)
                 eps = self.unet(x, int(t), prompt_embeds)
-                step_noise = self._noise(noise.steps(sid, i, lat.shape[1:]))
-                prev, state = self.scheduler.step(eps.float(), begin_index + i, lat.float(), sigmas,
-                                                  num_inference_steps, state, noise=step_noise)
-                lat = prev.to(dtype)
+                with span("rd.sampler", {"windows": b - a, "step": begin_index + i}):
+                    step_noise = self._noise(noise.steps(sid, i, lat.shape[1:]))
+                    prev, state = self.scheduler.step(eps.float(), begin_index + i, lat.float(), sigmas,
+                                                      num_inference_steps, state, noise=step_noise)
+                    lat = prev.to(dtype)
+                _count(counters, iclight_unet_calls=1, sampler_steps=1)
             lats.append(lat)
         chunks["unet"] = chunks.get("unet", 0) + len(bounds) * len(timesteps)
-        lat = torch.cat(lats)
+        return torch.cat(lats)
+
+    def _decode_windows(self, lat: torch.Tensor, s_all: int, vae_bs: int, chunks: Dict[str, int]) -> torch.Tensor:
+        """Denoised windows [S, n, h, w, 4] -> every window frame decoded,
+        [S, n, 3, H, W] in the pipeline dtype.  With a mesh ``lat`` is this dp
+        rank's block and the decoded blocks are all-gathered to ``s_all``
+        windows."""
+        s, n = lat.shape[:2]
         img = self._decode(lat.reshape((s * n,) + lat.shape[2:]), vae_bs, chunks)  # [S*n, H, W, 3]
         img = img.reshape((s, n) + img.shape[1:]).permute(0, 1, 4, 2, 3).contiguous()
         return gather_rows(img, self.mesh, s_all)
+
+
+def _count(counters: Dict[str, int], **incr: int) -> None:
+    for k, v in incr.items():
+        counters[k] = counters.get(k, 0) + v

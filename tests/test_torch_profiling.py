@@ -191,22 +191,41 @@ def test_span_is_a_profiler_range_with_its_args():
 
 
 def test_relight_call_spans_each_layer(monkeypatch):
-    """A relight call is one ``rd.clip`` holding its ``rollingimg.`` phases,
-    a ``rd.unet`` per UNet chunk, a ``rd.vae.*`` per VAE chunk and one solve
-    a channel."""
+    """A relight call is one ``rd.clip`` holding its ``rollingimg.`` phases
+    (``encode``, ``init``, ``snippet_infer``, ``decode``, ``coalign``), an
+    ``rd.unet`` per UNet chunk of both UNets, an ``rd.t2i`` holding one
+    ``rd.sampler`` per t2i step of each chunk, an ``rd.sampler`` per window
+    step in ``snippet_infer``, a ``rd.vae.*`` per VAE chunk and one solve a
+    channel; ``last_counters`` counts what the chunk counts imply."""
     from tests.test_torch_relight import STEPS, build_pair, frames
 
     monkeypatch.delenv(tprof.TRACE_ENV, raising=False)
     _, tpipe = build_pair()
-    kw = dict(dilations=[1, 2], cap_dilation=False, init_mode="shared_noise", seed=2,
+    kw = dict(dilations=[1, 2], cap_dilation=False, init_mode="t2i", seed=2,
               coalign_kwargs={"num_iterations": 1}, **STEPS)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         tpipe.forward(frames(), frames(seed=1), **kw)
     spans, chunks = _spans(prof), tpipe.last_chunks
     clips = [s for s in spans if s[0] == tprof.CLIP_SPAN]
     assert len(clips) == 1 and all(clips[0][1] <= s[1] and s[2] <= clips[0][2] for s in spans)
-    assert [s[0] for s in _inside(spans, clips[0], "rollingimg.")] == [f"rollingimg.{p}" for p in tpipe.last_timings]
+    phases = ["encode", "init", "snippet_infer", "decode", "coalign"]
+    assert list(tpipe.last_timings) == phases
+    assert [s[0] for s in _inside(spans, clips[0], "rollingimg.")] == [f"rollingimg.{p}" for p in phases]
     names = [s[0] for s in spans]
-    assert names.count("rd.unet") == chunks["unet"]
+    assert names.count("rd.unet") == chunks["unet"] + chunks["t2i_unet"]
     assert (names.count("rd.vae.encode"), names.count("rd.vae.decode")) == (chunks["encode"], chunks["decode"])
+    (t2i,) = [s for s in spans if s[0] == "rd.t2i"]
+    (init,) = [s for s in spans if s[0] == "rollingimg.init"]
+    (infer,) = [s for s in spans if s[0] == "rollingimg.snippet_infer"]
+    assert init[1] <= t2i[1] and t2i[2] <= init[2]
+    t2i_chunks, t_start = 3, 2  # 6 frames two at a time; a 4-step schedule entered at strength 0.5
+    assert chunks["t2i_unet"] == t2i_chunks * t_start
+    assert len(_inside(spans, t2i, "rd.sampler")) == chunks["t2i_unet"]
+    assert len(_inside(spans, infer, "rd.sampler")) == chunks["unet"]
+    assert names.count("rd.sampler") == chunks["t2i_unet"] + chunks["unet"]
+    windows = 4 + 2  # dilations 1 and 2 over 6 frames
+    generators = 6 + 6 * t_start + windows * (STEPS["num_inference_steps"] - t_start)  # a frame's init, each step's
+    assert tpipe.last_counters == {"iclight_unet_calls": chunks["unet"], "base_unet_calls": chunks["t2i_unet"],
+                                   "sampler_steps": chunks["unet"] + chunks["t2i_unet"],
+                                   "noise_generators": generators}
     _check_solves(spans, 3)
