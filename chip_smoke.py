@@ -143,7 +143,10 @@ solve      each path's co-alignment solve is one launch of the solve kernel
            ``tools/profile_fast_path.device_shares``.
 In main, full, paper, relight and train the kernel launch counts must
 equal what the chunk and step counts imply (``attention_kernel_launches``,
-``relight_kernel_launches``, ``train_kernel_launches``); in every bf16 call
+``relight_kernel_launches``, ``train_kernel_launches``), and K1's and
+K2's cut launches (products narrower than the padding, ``cut_launches``)
+must be every narrow launch of relight (``relight_cut_launches``: SD1.5's
+d = 40 and 80) and none of main and full (SD2's d = 64); in every bf16 call
 (main, w8a8, gate_closed, full, relight, the parallel ranks) the GroupNorm
 pair's launches must equal ``norm_kernel_launches`` (so the plain norm ran
 0 times: on the card the wrapper launches or raises), in fp32 (paper,
@@ -160,7 +163,8 @@ their fp32 instantiation, the paper path's; then the GroupNorm pair, with
 bytes over the call, with its launches by path, the main path's sums over
 all its inputs and each of its inputs), and as its last line
 ``{"ok": true, "device": {...}}``.  The kernels phase also times K1, K2
-and K3 at the relight path's shapes (``relight_shapes`` in their rows), and
+and K3 at the relight path's shapes (``relight_shapes`` in their rows; the
+times before the products ran at the head's width as ``earlier_ms``), and
 K1 bf16 and fp32 at the parallel phase's tp = 2 shapes (``tp_shapes``).
 """
 
@@ -479,6 +483,25 @@ def relight_kernel_launches(attn, pipe, chunks, lat_hw, snippet_len: int, narrow
     want = {"flash_attention_nomax": 0, "flash_attention_max": 0,
             "flash_attention_wide": window["wide"] * n_unet + t2i["wide"] * n_t2i + chunks["encode"] + chunks["decode"]}
     want[narrow] = window["narrow"] * n_unet + t2i["narrow"] * n_t2i
+    return want
+
+
+def cut_counts(fa) -> dict:
+    """K1's and K2's launches whose products ran narrower than the padding."""
+    return {fn.__name__: fn.cut_launches for fn in fa.NARROW}
+
+
+def relight_cut_launches(attn, fa, pipe, chunks, lat_hw, snippet_len: int, narrow: str) -> dict:
+    """The narrow launches of a relight call (``relight_kernel_launches``)
+    whose heads run their products narrower than the padding
+    (``flash_attention.product_widths``): SD1.5's d = 40 and 80, every one."""
+    cfg = pipe.unet.config
+    n = 0
+    for frames, calls in ((snippet_len, chunks["unet"]), (1, chunks.get("t2i_unet", 0))):
+        n += calls * sum(kind == "narrow" and max(fa.product_widths(d)) < fa.padded_width(d)
+                         for kind, _, _, d in kernel_calls(attn, cfg, frames, *lat_hw))
+    want = {"flash_attention_nomax": 0, "flash_attention_max": 0}
+    want[narrow] = n
     return want
 
 
@@ -882,6 +905,13 @@ def norm_path_totals(rows: list, path: str) -> dict:
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
 
+# The relight shapes' times before K1 and K2 ran their products at the
+# head's width from K and V padded to whole rows (NVIDIA H100 80GB HBM3,
+# 700 W), printed beside the new ones.
+EARLIER_MS = {("nomax", (8, 21600, 8, 40)): 17.563, ("nomax", (8, 5400, 8, 80)): 1.500,
+              ("max", (8, 21600, 8, 40)): 19.829, ("max", (8, 5400, 8, 80)): 2.038}
+
+
 def kernel_phase(torch, fa):
     """Each kernel against its plain version; returns the main-shape rows."""
     import torch.nn.functional as F
@@ -948,6 +978,8 @@ def kernel_phase(torch, fa):
         row = {"name": name, "shape": [b, lq, h, d], "L_k": lk, "dtype": str(dtype).split(".")[-1],
                **errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        if (name, (b, lq, h, d)) in EARLIER_MS and dtype == torch.bfloat16:
+            row["earlier_ms"] = EARLIER_MS[(name, (b, lq, h, d))]
         log(row)
         if row_key in ("relight", "tp"):
             rows[row_key].append(row)
@@ -1019,15 +1051,20 @@ def relight_phase(torch, attn, fa, gn, gen, smi, measure_only: bool, seen: dict)
         torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    cut = cut_counts(fa)
     chunks = dict(pipe.last_chunks)
     check_rgb("relight", out, (n, 1) + RELIGHT_RES[1:])
     want = relight_kernel_launches(attn, pipe, chunks, lat_hw, 3, "flash_attention_nomax")
     if launches != want:
         raise AssertionError(f"relight: launches {launches} != {want} implied by chunks {chunks}")
+    want_cut = relight_cut_launches(attn, fa, pipe, chunks, lat_hw, 3, "flash_attention_nomax")
+    if cut != want_cut or cut["flash_attention_nomax"] != launches["flash_attention_nomax"]:
+        raise AssertionError(f"relight: cut launches {cut} != {want_cut}, or not every K1 launch")
     norms = held_norm_counts("relight", gn, pipe, chunks, seen)
     log({"phase": "relight", "frames": n, "res": list(RELIGHT_RES[1:]), "warmup_frames": 6, "warmup_s": warm_s,
          "total_s": total_s, "fps": n / total_s, "timings_s": pipe.last_timings, "chunks": chunks,
-         "launches": launches, "norm_launches": norms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+         "launches": launches, "cut_launches": cut, "norm_launches": norms,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     # the three channel solves, a launch each, then R's solve again: kernel against eager steps
     if len(probe["calls"]) != 3:
         raise AssertionError(f"relight: {len(probe['calls'])} solves, not one a channel")
@@ -1746,6 +1783,8 @@ def main(argv=None) -> int:
     want = attention_kernel_launches(attn, pipe, chunks, lat_hw, 3, 3, "flash_attention_nomax")
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} implied by chunks {chunks}")
+    if any(cut_counts(fa).values()):  # SD2's heads are all d = 64: none runs narrower
+        raise AssertionError(f"main: cut launches {cut_counts(fa)}, want none")
     seen = {}  # path -> the inputs its counted call gave the GroupNorm pair
     norms = {"main": held_norm_counts("main", gn, pipe, chunks, seen)}
     log({"phase": "main", "frames": n_frames, "res": [height, width], "warmup_s": warm_s, "total_s": total_s,
@@ -1812,6 +1851,8 @@ def main(argv=None) -> int:
                                        "flash_attention_nomax")
     if launches_f != want_f:
         raise AssertionError(f"full: launches {launches_f} != {want_f} implied by chunks {chunks_f}")
+    if any(cut_counts(fa).values()):
+        raise AssertionError(f"full: cut launches {cut_counts(fa)}, want none")
     norms["full"] = held_norm_counts("full", gn, pipe, chunks_f, seen)
     log({"phase": "full", "frames": n_frames, "res": list(FULL_RES[1:]), "warmup_frames": 12,
          "warmup_s": warm_full_s, "total_s": full_s, "fps": n_frames / full_s, "timings_s": pipe.last_timings,

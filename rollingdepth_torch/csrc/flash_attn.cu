@@ -30,7 +30,8 @@
 // the score to bf16, and, with a running max, the difference s - m too; p =
 // exp2 of that is rounded to bf16 as always.
 //
-// Layout: q, k, v and o are [B, L, H, D] contiguous, read in place.  TMA
+// Layout: q, k, v and o are [B, L, H, D] contiguous, read in place (but a
+// narrow head's k and v where d is not 64: below).  TMA
 // reads them through 4-D tensor maps (d, H, L, B) in boxes of 64 columns
 // (32 in fp32, 128 bytes either way): columns past d and rows past L arrive as zeros, and no box crosses a
 // head or a batch.  bf16 runs on the tensor cores with wgmma (fp32
@@ -38,9 +39,9 @@
 // (cp.async.bulk.tensor, mbarrier, wgmma.mma_async, setmaxnreg) is wrapped
 // in hopper.cuh.
 //
-// Narrow heads (d < 128, padded to 64 or 128 columns): one CTA per
-// (64*NCW-query tile, batch*head), NCW = 2 consumer warpgroups (3 for the
-// bf16-score variants) plus one producer warpgroup.  One producer thread
+// Narrow heads (d < 128): one CTA per (64*NCW-query tile, batch*head), NCW
+// = 2 consumer warpgroups (3 for the bf16-score variants and for d > 64)
+// plus one producer warpgroup.  One producer thread
 // keeps a 3-stage ring of K and V tiles (128 keys for d <= 64, 64 for
 // d <= 128) in flight with TMA; the producer gives up registers
 // (setmaxnreg) to the consumers, which own 64 query rows each.  A consumer
@@ -50,6 +51,31 @@
 // consumers take turns on the tensor cores, round robin (named barriers):
 // each turn issues the previous tile's P V and this tile's Q K^T, so one
 // warpgroup's softmax runs under the others' products.
+//
+// Every narrow d but 64 (SD1.5's 40 and 80) is narrower than its 64 or 128
+// columns in shared memory.  TMA reads a row of fewer than 64 bf16 columns,
+// or one not 128-byte aligned, at a fraction of the rate of a whole aligned
+// row: K and V alone of [8, 21600, 8, 40] stream in 16.2 ms in 64-column
+// boxes (columns past d filled with zeros), 10.7 in boxes of exactly 40
+// columns and 19.4 in boxes of 16 or 8, against 4.6 ms at d = 64.  That
+// bound K1 there, which ran its products over the padding to no cost: at
+// the head's width alone it took 17.9 ms, against 17.1-18.3.  So a pre-pass
+// (flash_fwd_pad_kv) copies K and V into the caller's scratch padded to 64
+// or 128 columns, TMA reads whole aligned rows, and the kernel is bound by its
+// softmax and products, which run at the head's width, not the padding:
+// Q K^T over d rounded up to 16 (3 k16 steps for d = 40, 5 for 80, not 4
+// and 8; the columns past d are zeros in both operands), P V at N = d + 8
+// (48, 88, not 64, 128) over V's 64-column blocks, N leaving the last block
+// part unread.  Column d of the padded V is ones, so that column d of P V
+// is the sum of the rounded P, the normaliser, and the threads no longer
+// add it up score by score (two of the softmax's few instructions a score).
+// The tensor core adds in another order than the threads did: the output
+// differs from the kernel's on inputs zero-padded to 64 or 128 columns by
+// one bf16 ulp on about 1e-4 of the elements (without the ones column it
+// is bit-equal).  K6 normalises by the fp32 P and keeps the threads' sum.
+// d = 64 runs as before.  K1 at [8, 21600, 8, 40] 17.1-17.6 -> 14.3-14.4 ms
+// (bound 4.8 ms by the head's operations), [8, 5400, 8, 80] 1.57-1.60 ->
+// 1.26-1.31 (bound 0.6); NVIDIA H100 80GB HBM3, 700 W.
 //
 // Wide heads (d <= 512, padded to 128, 256 or 512): one CTA per (64-query
 // tile, batch*head), 32-key tiles in a 2-stage ring.  For d = 512 two
@@ -62,7 +88,9 @@
 // Bound on the H100 (data-sheet estimates): at the UNet's first level,
 // [8, 15552, 5, 64] bf16, one launch is 2.48 TFLOP of mma (2.5 ms at
 // 989 TFLOP/s) and 9.7e9 exp2 on the SFUs (~2.5 ms at 16 per SM-clock).
-// Whether the SFU binds this design is not measured yet (PERF.md).  The VAE's d = 512 head,
+// The softmax binds it: without its exp2 the kernel takes 4.8 ms, not 5.7,
+// without the normaliser's adds 5.3, without the scale's multiply 5.3; its
+// loads alone 1.5 ms.  The VAE's d = 512 head,
 // [4, 5184, 1, 512], is 0.22 TFLOP (0.22 ms), with 64 multiplies of the
 // tensor cores per exp2.
 //
@@ -87,6 +115,8 @@
 // exactly 0 (masked scores, zero v^T), P stays in fp32, the normaliser sums
 // the fp32 P.
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -110,10 +140,12 @@ __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(_
 // One key tile's softmax on a wgmma score accumulator of NT 8-key blocks
 // (thread layout of m64nN: s[4*nt + e] is row g + 8*(e >> 1), key 8*nt +
 // 2*tig + (e & 1)).  Scales and masks s, updates the running max m_r and
-// the partial row sums l_r of rows g and g + 8, rescales the output
-// accumulator by corr, and leaves P rounded to bf16 in pa as wgmma A
-// fragments of 16 keys each.
-template <int NT, int NACC, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES>
+// (THREAD_SUM) the partial row sums l_r of rows g and g + 8, rescales the
+// output accumulator by corr, and leaves P rounded to bf16 in pa as wgmma
+// A fragments of 16 keys each.  Without THREAD_SUM the caller sums P in
+// its P V product (a column of ones in V).
+template <int NT, int NACC, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES,
+          bool THREAD_SUM = true>
 __device__ __forceinline__ void softmax_tile(float (&s)[NT * 4], float (&acc)[NACC], uint32_t (&pa)[NT / 2][4],
                                              float (&m_r)[2], float (&l_r)[2], int k0, int Lk, int tig,
                                              float scale_log2) {
@@ -167,10 +199,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT * 4], float (&acc)[NA
     }
     const __nv_bfloat162 lo = __floats2bfloat162_rn(p[0], p[1]);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2], p[3]);
-    if (SUM_ROUNDED) {
+    if (THREAD_SUM && SUM_ROUNDED) {
       l_r[0] += __low2float(lo) + __high2float(lo);
       l_r[1] += __low2float(hi) + __high2float(hi);
-    } else {
+    } else if (THREAD_SUM) {
       l_r[0] += p[0] + p[1];
       l_r[1] += p[2] + p[3];
     }
@@ -208,19 +240,16 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
-// O += P V for one warpgroup: KEYS/16 wgmma of k16, V MN-major with 64-column
-// blocks `block_bytes` apart.
+// O += P V for one warpgroup: KEYS/16 wgmma of k16 at N = DV, V MN-major in
+// 64-column blocks of KEYS rows; N need not fill the last block (N = 48
+// reads the first 48 columns of one).
 template <int DV, int KEYS>
 __device__ __forceinline__ void pv_products(float (&acc)[DV / 2], const uint32_t (&pa)[KEYS / 16][4],
-                                            const unsigned char* v_tile, uint32_t block_bytes) {
-  uint64_t dv = make_desc(v_tile, block_bytes, 1024);
+                                            const unsigned char* v_tile) {
+  uint64_t dv = make_desc(v_tile, KEYS * 128, 1024);
   opaque(dv);
 #pragma unroll
-  for (int kk = 0; kk < KEYS / 16; ++kk) {
-    if constexpr (DV == 64) wgmma_rs_n64(acc, pa[kk], dv + kk * 128);
-    else if constexpr (DV == 128) wgmma_rs_n128(acc, pa[kk], dv + kk * 128);
-    else wgmma_rs_n256(acc, pa[kk], dv + kk * 128);
-  }
+  for (int kk = 0; kk < KEYS / 16; ++kk) wgmma_rs<DV>(acc, pa[kk], dv + kk * 128);
 }
 
 // ---- narrow heads: d < 128 ------------------------------------------------------
@@ -228,37 +257,57 @@ __device__ __forceinline__ void pv_products(float (&acc)[DV / 2], const uint32_t
 constexpr int N_STAGES = 3;
 
 // Consumer warpgroups of 64 query rows.  Two, unless the scores are
-// rounded to bf16: those two extra conversions per score make the softmax
-// longer than the products, and a third warpgroup keeps the tensor cores
-// fed (measured: K1 5.4 ms with two, 6.1 with three; K8 10.7 with two, 9.5
-// with three, NVIDIA H100 80GB HBM3, 700 W).
-template <bool BF16_SCORES>
+// rounded to bf16 or the head is wider than 64: the two extra conversions
+// per score make the softmax longer than the products, and a third
+// warpgroup keeps the tensor cores fed (measured: K1 5.4 ms with two, 6.1
+// with three; K8 10.7 with two, 9.5 with three); above 64 columns the
+// 64-key tiles make the turns short, and a third warpgroup hides more of
+// them (K1 at [8, 5400, 8, 80] 1.42 ms with two, 1.28 with three; at d =
+// 40 three are slower, 15.6 ms against 14.4).  NVIDIA H100 80GB HBM3, 700 W.
+template <bool BF16_SCORES, int D>
 __host__ __device__ constexpr int narrow_consumers() {
-  return BF16_SCORES ? 3 : 2;
+  return BF16_SCORES || D > 64 ? 3 : 2;
+}
+
+// A narrow head of d columns (d % 8 == 0, d < 128) runs the instantiation
+// D = max(d, 32).  Q, K and V rows take narrow_padded(D) columns in shared
+// memory (64-column blocks, 128-byte swizzle), zero past d.  Where D is not
+// 64, K and V come from a copy padded to that many columns
+// (launch_narrow_d), and the products run at the head's width, not the
+// padding: Q K^T over narrow_qk_depth(D) columns, P V at N =
+// narrow_pv_width(D), whose column D is a column of ones in the padded V
+// that sums the rounded P (the normaliser) where SUM_ROUNDED.
+__host__ __device__ constexpr int narrow_padded(int d) { return d <= 64 ? 64 : 128; }
+__host__ __device__ constexpr int narrow_qk_depth(int d) { return (d + 15) / 16 * 16; }
+__host__ __device__ constexpr bool narrow_ones(int d, bool sum_rounded) { return d != 64 && sum_rounded; }
+__host__ __device__ constexpr int narrow_pv_width(int d, bool sum_rounded) {
+  return narrow_ones(d, sum_rounded) ? d + 8 : d;
 }
 
 // keys per tile: the score accumulator is NK / 2 registers a thread
-template <int DP>
+template <int D>
 __host__ __device__ constexpr int narrow_keys() {
-  return DP == 64 ? 128 : 64;
+  return D <= 64 ? 128 : 64;
 }
 
-template <int DP, int NCW>
+template <int D, int NCW>
 constexpr int narrow_smem_bytes() {
-  return DP / 64 * (64 * NCW + 2 * N_STAGES * narrow_keys<DP>()) * 128 + (1 + 3 * N_STAGES) * 8 + 1024;
+  return narrow_padded(D) / 64 * (64 * NCW + 2 * N_STAGES * narrow_keys<D>()) * 128 + (1 + 3 * N_STAGES) * 8 + 1024;
 }
 
-template <int DP, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES>
-__global__ void __launch_bounds__(128 * (narrow_consumers<BF16_SCORES>() + 1), 1)
+template <int D, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES>
+__global__ void __launch_bounds__(128 * (narrow_consumers<BF16_SCORES, D>() + 1), 1)
 flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
                  int d, float scale_log2) {
-  constexpr int NCW = narrow_consumers<BF16_SCORES>();
+  constexpr int NCW = narrow_consumers<BF16_SCORES, D>();
   constexpr int NQ = 64 * NCW;  // query rows per CTA
-  constexpr int NK = narrow_keys<DP>();
-  constexpr int CB = DP / 64;         // 64-column blocks of a row
-  constexpr int Q_BLOCK = NQ * 128;   // bytes of one column block of the Q tile
-  constexpr int KV_BLOCK = NK * 128;  // ... of a K or V tile
+  constexpr int NK = narrow_keys<D>();
+  constexpr int CB = narrow_padded(D) / 64;  // 64-column blocks of a row
+  constexpr bool ONES = narrow_ones(D, SUM_ROUNDED);
+  constexpr int DV = narrow_pv_width(D, SUM_ROUNDED);
+  constexpr int Q_BLOCK = NQ * 128;          // bytes of one column block of the Q tile
+  constexpr int KV_BLOCK = NK * 128;         // ... of a K or V tile
   constexpr int KV_TILE = CB * KV_BLOCK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);
@@ -333,11 +382,11 @@ flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       bar_sync(1 + NCW + cw, 128);  // ids 1..NCW are the turns
     }
 
-    float acc[DP / 2];
+    float acc[DV / 2];
     float sacc[NK / 2];
     uint32_t pa[NK / 16][4];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NK / 2; ++i) sacc[i] = 0.f;
 #pragma unroll
@@ -370,7 +419,7 @@ flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       uint64_t dq = make_desc(sQw, 16, 1024), dk = make_desc(sK + s * KV_TILE, 16, 1024);
       opaque(dq);  // computed here, not hoisted out of the loop into registers
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
+      for (int kk = 0; kk < narrow_qk_depth(D) / 16; ++kk) {
         const int off = ((kk / 4) * Q_BLOCK + (kk % 4) * 32) >> 4;
         const int koff = ((kk / 4) * KV_BLOCK + (kk % 4) * 32) >> 4;
         if constexpr (NK == 128) wgmma_ss_n128(sacc, dq + off, dk + koff, kk > 0);
@@ -378,8 +427,8 @@ flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
     };
     auto softmax = [&](int j) {
-      softmax_tile<NK / 8, DP / 2, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(sacc, acc, pa, m_r, l_r, j * NK,
-                                                                                  Lk, tig, scale_log2);
+      softmax_tile<NK / 8, DV / 2, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES, !ONES>(sacc, acc, pa, m_r, l_r,
+                                                                                       j * NK, Lk, tig, scale_log2);
     };
 
     if (cw == NCW - 1) bar_arrive(1, 256);
@@ -394,7 +443,7 @@ flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       mbar_wait(full_k + s, (j / N_STAGES) & 1);
       mbar_wait(full_v + sp, ((j - 1) / N_STAGES) & 1);
       turn_begin();
-      pv_products<DP, NK>(acc, pa, sV + sp * KV_TILE, KV_BLOCK);
+      pv_products<DV, NK>(acc, pa, sV + sp * KV_TILE);
       qk_products(s);
       turn_end(false);
       mbar_arrive(empty + sp);
@@ -403,12 +452,18 @@ flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int sl = (n_kt - 1) % N_STAGES;
     mbar_wait(full_v + sl, ((n_kt - 1) / N_STAGES) & 1);
     turn_begin();
-    pv_products<DP, NK>(acc, pa, sV + sl * KV_TILE, KV_BLOCK);
+    pv_products<DV, NK>(acc, pa, sV + sl * KV_TILE);
     turn_end(true);  // the last tile's stage is not released: nothing waits for it
+    if (ONES) {
+      // the normaliser is column D of the output accumulator, held by the
+      // quad's first thread; store_rows sums it over the quad
+      l_r[0] = tig == 0 ? acc[D / 2] : 0.f;
+      l_r[1] = tig == 0 ? acc[D / 2 + 2] : 0.f;
+    }
 
     const long long rs = (long long)H * d;
     __nv_bfloat16* ob = o + (long long)b * Lq * rs + (long long)h * d;
-    store_rows<DP / 2>(acc, l_r, ob, rs, q0 + cw * 64 + warp * 16, 0, Lq, d, g, tig);
+    store_rows<DV / 2>(acc, l_r, ob, rs, q0 + cw * 64 + warp * 16, 0, Lq, d, g, tig);
   }
 }
 
@@ -530,7 +585,7 @@ flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       fence_regs(acc);
       fence_regs(pa);
       wgmma_fence();
-      pv_products<DV, WK>(acc, pa, sV + s * KV_TILE + cw * CBV * KV_BLOCK, KV_BLOCK);
+      pv_products<DV, WK>(acc, pa, sV + s * KV_TILE + cw * CBV * KV_BLOCK);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1045,22 +1100,64 @@ flash_fwd_wide_f32(const __grid_constant__ CUtensorMap tqb, const __grid_constan
 
 // ---- launchers ----------------------------------------------------------------
 
-// The three tensor maps of a bf16 launch: q in boxes of q_rows, k and v of kv_rows.
+// The three tensor maps of a bf16 launch: q (d columns) in boxes of q_rows,
+// k and v (kv_d columns: d, or d padded) of kv_rows.
 bool encode_qkv(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int B, int H, int Lq,
-                int Lk, int d, int q_rows, int kv_rows) {
+                int Lk, int d, int q_rows, int kv_rows, int kv_d) {
   return hopper_host::encode_bf16_bhld(&maps[0], q, B, Lq, H, d, q_rows) &&
-         hopper_host::encode_bf16_bhld(&maps[1], k, B, Lk, H, d, kv_rows) &&
-         hopper_host::encode_bf16_bhld(&maps[2], v, B, Lk, H, d, kv_rows);
+         hopper_host::encode_bf16_bhld(&maps[1], k, B, Lk, H, kv_d, kv_rows) &&
+         hopper_host::encode_bf16_bhld(&maps[2], v, B, Lk, H, kv_d, kv_rows);
 }
 
-template <int DP, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES>
-int launch_narrow_dp(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk, int d,
-                     float scale_log2, cudaStream_t stream) {
+// k and v [rows, d] -> kp and vp [rows, dp]: columns past d zero, but for
+// v's column `ones` (-1: none), which is 1.  In 16-byte chunks (d8 = d / 8
+// a row in, dp8 out); blockIdx.y picks k or v.
+__global__ void flash_fwd_pad_kv(const uint4* __restrict__ k, const uint4* __restrict__ v, uint4* __restrict__ kp,
+                                 uint4* __restrict__ vp, long long rows, int d8, int dp8, int ones) {
+  const uint4* src = blockIdx.y ? v : k;
+  uint4* dst = blockIdx.y ? vp : kp;
+  const int ones8 = blockIdx.y && ones >= 0 ? ones / 8 : -1;
+  const uint4 one = make_uint4(0x3F80u, 0u, 0u, 0u);  // bf16 1.0 first in the chunk (ones % 8 == 0)
+  const long long n = rows * dp8;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / dp8;
+    const int c = (int)(i - r * dp8);
+    dst[i] = c < d8 ? src[r * d8 + c] : c == ones8 ? one : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Bytes of scratch a bf16 narrow launch takes: k and v padded to
+// narrow_padded(d) columns, none for d = 64.
+long long narrow_scratch_bytes(int B, int H, int Lk, int d) {
+  return d == 64 ? 0 : 2LL * 2 * B * Lk * H * narrow_padded(d);
+}
+
+template <int D, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES>
+int launch_narrow_d(const void* q, const void* k, const void* v, void* o, void* scratch, int B, int H, int Lq,
+                    int Lk, int d, float scale_log2, cudaStream_t stream) {
+  constexpr int dp = narrow_padded(D);
+  if (D != 64) {
+    // TMA reads a row of d < 64 columns, or one not 128-byte aligned, at a
+    // fraction of the rate of a whole aligned row (the note at the top), so
+    // k and v go to the scratch padded to dp columns first, with V's ones
+    if (scratch == nullptr) return ERR_UNSUPPORTED;
+    uint4* kp = static_cast<uint4*>(scratch);
+    uint4* vp = kp + (long long)B * Lk * H * dp / 8;
+    const long long rows = (long long)B * Lk * H, n = rows * (dp / 8);
+    const int blocks = (int)(n + 255 < 132LL * 8 * 256 ? (n + 255) / 256 : 132 * 8);
+    flash_fwd_pad_kv<<<dim3(blocks, 2), 256, 0, stream>>>(static_cast<const uint4*>(k), static_cast<const uint4*>(v),
+                                                          kp, vp, rows, d / 8, dp / 8,
+                                                          narrow_ones(D, SUM_ROUNDED) ? D : -1);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    k = kp;
+    v = vp;
+  }
   CUtensorMap maps[3];
-  constexpr int ncw = narrow_consumers<BF16_SCORES>(), nq = 64 * ncw;
-  if (!encode_qkv(maps, q, k, v, B, H, Lq, Lk, d, nq, narrow_keys<DP>())) return ERR_TENSOR_MAP;
-  auto kern = flash_fwd_narrow<DP, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>;
-  constexpr int smem = narrow_smem_bytes<DP, ncw>();
+  constexpr int ncw = narrow_consumers<BF16_SCORES, D>(), nq = 64 * ncw;
+  if (!encode_qkv(maps, q, k, v, B, H, Lq, Lk, d, nq, narrow_keys<D>(), dp)) return ERR_TENSOR_MAP;
+  auto kern = flash_fwd_narrow<D, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>;
+  constexpr int smem = narrow_smem_bytes<D, ncw>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lq + nq - 1) / nq, B * H);
@@ -1073,7 +1170,7 @@ template <int DP, int NCWG>
 int launch_wide_dp(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk, int d,
                    float scale_log2, cudaStream_t stream) {
   CUtensorMap maps[3];
-  if (!encode_qkv(maps, q, k, v, B, H, Lq, Lk, d, WQ, WK)) return ERR_TENSOR_MAP;
+  if (!encode_qkv(maps, q, k, v, B, H, Lq, Lk, d, WQ, WK, d)) return ERR_TENSOR_MAP;
   auto kern = flash_fwd_wide<DP, NCWG>;
   constexpr int smem = wide_smem_bytes<DP, NCWG>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1174,38 +1271,55 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, void* scrat
   return launch_wide_f32<512, 2, NO_MAX>(sp, o, B, H, Lq, Lk, d, sl, st);
 }
 
-// A narrow bf16 head (d % 8 == 0, d < 128): 64 or 128 padded columns.
+// A narrow bf16 head (d % 8 == 0, d < 128): the instantiation D = max(d, 32).
 template <bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q = false, bool BF16_SCORES = false>
-int launch_narrow(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
-                  int d, float sl, cudaStream_t st) {
+int launch_narrow(const void* q, const void* k, const void* v, void* o, void* scratch, int B, int H, int Lq,
+                  int Lk, int d, float sl, cudaStream_t st) {
   if (d % 8 != 0 || d >= 128) return ERR_UNSUPPORTED;
-  if (d <= 64)
-    return launch_narrow_dp<64, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
-  return launch_narrow_dp<128, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, B, H, Lq, Lk, d, sl, st);
+  auto at = [&](auto dd) {
+    return launch_narrow_d<decltype(dd)::value, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES>(q, k, v, o, scratch, B,
+                                                                                              H, Lq, Lk, d, sl, st);
+  };
+  switch (d < 32 ? 32 : d) {
+    case 32: return at(std::integral_constant<int, 32>{});
+    case 40: return at(std::integral_constant<int, 40>{});
+    case 48: return at(std::integral_constant<int, 48>{});
+    case 56: return at(std::integral_constant<int, 56>{});
+    case 64: return at(std::integral_constant<int, 64>{});
+    case 72: return at(std::integral_constant<int, 72>{});
+    case 80: return at(std::integral_constant<int, 80>{});
+    case 88: return at(std::integral_constant<int, 88>{});
+    case 96: return at(std::integral_constant<int, 96>{});
+    case 104: return at(std::integral_constant<int, 104>{});
+    case 112: return at(std::integral_constant<int, 112>{});
+    default: return at(std::integral_constant<int, 120>{});
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32.  scratch: rd_flash_f32_scratch_bytes() bytes
-// for fp32 (the split operands), unused for bf16.  Returns
-// cudaGetLastError() after the launch, -1 for a shape the kernel does not
-// take (the wrapper checks first), or -2 if the driver refuses a tensor map.
-extern "C" long long rd_flash_f32_scratch_bytes(int B, int H, int Lq, int Lk, int d) {
-  return 4 * f32_scratch_floats(B, H, Lq, Lk, d);
+// dtype: 0 = bf16, 1 = fp32.  scratch: rd_flash_scratch_bytes() bytes, the
+// fp32 kernels' split operands or a narrow bf16 head's padded k and v (none
+// for the wide bf16 kernel: narrow = 0).  Returns cudaGetLastError() after
+// the launch, -1 for a shape the kernel does not take (the wrapper checks
+// first), or -2 if cuTensorMapEncodeTiled refuses a tensor map.
+extern "C" long long rd_flash_scratch_bytes(int dtype, int narrow, int B, int H, int Lq, int Lk, int d) {
+  if (dtype == 1) return 4 * f32_scratch_floats(B, H, Lq, Lk, d);
+  return narrow && d < 128 ? narrow_scratch_bytes(B, H, Lk, d) : 0;
 }
 
 extern "C" int rd_flash_nomax(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch,
                               int B, int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_f32<true>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
-  return launch_narrow<true, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  return launch_narrow<true, true>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
 }
 
 extern "C" int rd_flash_max(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch,
                             int B, int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_f32<false>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
-  return launch_narrow<false, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  return launch_narrow<false, true>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
 }
 
 extern "C" int rd_flash_wide(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch,
@@ -1223,14 +1337,14 @@ extern "C" int rd_flash_exp2(int dtype, const void* q, const void* k, const void
                              int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_f32<false>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
-  return launch_narrow<false, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  return launch_narrow<false, false>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
 }
 
 // K8: q pre-scaled and rounded, bf16 scores, running max; bf16 only.
 extern "C" int rd_flash_bf16(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch, int B,
                              int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   if (dtype != 0) return ERR_UNSUPPORTED;
-  return launch_narrow<false, true, true, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2,
+  return launch_narrow<false, true, true, true>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2,
                                                 static_cast<cudaStream_t>(stream));
 }
 
@@ -1239,7 +1353,7 @@ extern "C" int rd_flash_nomax_bf16exp(int dtype, const void* q, const void* k, c
                                       int B, int H, int Lq, int Lk, int d, float scale_log2,
                                       void* stream) {
   if (dtype != 0) return ERR_UNSUPPORTED;
-  return launch_narrow<true, true, false, true>(q, k, v, o, B, H, Lq, Lk, d, scale_log2,
+  return launch_narrow<true, true, false, true>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2,
                                                 static_cast<cudaStream_t>(stream));
 }
 
@@ -1248,5 +1362,5 @@ extern "C" int rd_flash_nomask(int dtype, const void* q, const void* k, const vo
                                int H, int Lq, int Lk, int d, float scale_log2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_f32<true>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
-  return launch_narrow<true, true, true, false>(q, k, v, o, B, H, Lq, Lk, d, scale_log2, st);
+  return launch_narrow<true, true, true, false>(q, k, v, o, scratch, B, H, Lq, Lk, d, scale_log2, st);
 }

@@ -9,7 +9,9 @@
 Each wrapper takes ``[B, L, H, D]`` tensors.  On a CUDA tensor it launches
 its kernel (building it at first use, ``ops/_build.py``) or raises; on a
 CPU tensor it runs ``attention_exp2_reference``, the plain PyTorch version
-of the same arithmetic.  Each wrapper counts its launches in ``.launches``.
+of the same arithmetic.  Each wrapper counts its launches in ``.launches``;
+K1 and K2 count in ``.cut_launches`` those whose products ran narrower than
+the head's padding to 64 or 128 columns (``product_widths``).
 
 ``FlashAttention`` makes a wrapper differentiable, as the JAX package's
 ``flash_attention`` ``custom_vjp`` does: the wrapper runs forward and only
@@ -81,6 +83,28 @@ def attention_exp2_reference(
     return out
 
 
+def padded_width(d: int) -> int:
+    """Columns a narrow bf16 head takes in the kernels' tiles: 64 or 128."""
+    return 64 if d <= 64 else 128
+
+
+def product_widths(d: int) -> tuple:
+    """``(qk_depth, pv_width)``: the widths at which K1 and K2 run their two
+    products for a bf16 head of ``d`` columns (``csrc/flash_attn.cu``,
+    ``narrow_qk_depth`` and ``narrow_pv_width``).  d = 64 as padded; any other
+    d (``max(d, 32)``) contracts Q K^T over d rounded up to 16 and runs P V
+    at N = d + 8, column d being the ones that sum the normaliser."""
+    d = max(d, 32)
+    if d == 64:
+        return 64, 64
+    return -(-d // 16) * 16, d + 8
+
+
+def _is_cut(q: torch.Tensor) -> bool:
+    d = q.shape[-1]
+    return q.dtype == torch.bfloat16 and max(product_widths(d)) < padded_width(d)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q, k, v on different devices")
@@ -109,17 +133,18 @@ def _launch(symbol: str, q, k, v, scale: Optional[float]) -> torch.Tensor:
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     o = torch.empty_like(q)
-    scratch = None
-    if q.dtype == torch.float32:
-        # the fp32 kernels' split operands (q, k and v^T as tf32 big and small parts)
-        lib.rd_flash_f32_scratch_bytes.argtypes = [ctypes.c_int] * 5
-        lib.rd_flash_f32_scratch_bytes.restype = ctypes.c_longlong
-        scratch = torch.empty(lib.rd_flash_f32_scratch_bytes(b, h, lq, lk, d), dtype=torch.uint8, device=q.device)
+    # the fp32 kernels' split operands (q, k and v^T as tf32 big and small
+    # parts), or a narrow bf16 head's k and v padded to 64 or 128 columns
+    lib.rd_flash_scratch_bytes.argtypes = [ctypes.c_int] * 7
+    lib.rd_flash_scratch_bytes.restype = ctypes.c_longlong
+    dtype = 0 if q.dtype == torch.bfloat16 else 1
+    nbytes = lib.rd_flash_scratch_bytes(dtype, int(symbol != "rd_flash_wide"), b, h, lq, lk, d)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     sl = (d**-0.5 if scale is None else scale) * LOG2E
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(0 if q.dtype == torch.bfloat16 else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 o.data_ptr(), None if scratch is None else scratch.data_ptr(), b, h, lq, lk, d, sl, stream)
+        err = fn(dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), b, h, lq, lk, d, sl, stream)
     if err != 0:
         why = {-1: "unsupported shape", -2: "the driver refused a TMA tensor map"}.get(err, f"CUDA error {err}")
         raise RuntimeError(f"{symbol} failed: {why} at q{tuple(q.shape)} L_k={lk} {q.dtype}")
@@ -137,6 +162,7 @@ def flash_attention_nomax(q, k, v, scale: Optional[float] = None) -> torch.Tenso
         raise ValueError("flash_attention_nomax: bf16 head dim must be < 128; use flash_attention_wide")
     out = _launch("rd_flash_nomax", q, k, v, scale)
     flash_attention_nomax.launches += 1
+    flash_attention_nomax.cut_launches += _is_cut(q)
     return out
 
 
@@ -149,6 +175,7 @@ def flash_attention_max(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
         raise ValueError("flash_attention_max: bf16 head dim must be < 128; use flash_attention_wide")
     out = _launch("rd_flash_max", q, k, v, scale)
     flash_attention_max.launches += 1
+    flash_attention_max.cut_launches += _is_cut(q)
     return out
 
 
@@ -212,10 +239,15 @@ class FlashAttention(torch.autograd.Function):
 flash_attention_nomax.launches = 0
 flash_attention_max.launches = 0
 flash_attention_wide.launches = 0
+flash_attention_nomax.cut_launches = 0
+flash_attention_max.cut_launches = 0
 
 KERNELS = (flash_attention_nomax, flash_attention_max, flash_attention_wide)
+NARROW = (flash_attention_nomax, flash_attention_max)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in NARROW:
+        fn.cut_launches = 0

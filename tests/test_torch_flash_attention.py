@@ -62,6 +62,35 @@ def test_cpu_wrappers_do_not_count_launches():
     assert [fn.launches for fn in fa.KERNELS] == [0, 0, 0]
 
 
+def test_cpu_wrappers_count_no_cut_launches():
+    """A d = 40 bf16 head on the CPU runs the plain version: no launch and no
+    cut launch; reset_launch_counts clears the cut counts too."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(1, 64, 64, 2, 40, seed=1))
+    fa.flash_attention_nomax.cut_launches = fa.flash_attention_max.cut_launches = 3
+    fa.reset_launch_counts()
+    fa.flash_attention_nomax(q, k, v)
+    fa.flash_attention_max(q, k, v)
+    assert [fn.cut_launches for fn in fa.NARROW] == [0, 0]
+    assert [fn.launches for fn in fa.NARROW] == [0, 0]
+
+
+@pytest.mark.parametrize("d", range(32, 128, 8))
+def test_product_widths(d):
+    """The narrow kernels' product widths for every d the dispatch sends
+    them (32 <= d < 128, d % 8 == 0): Q K^T in whole k16 steps, P V one
+    8-column block wider than d (its ones column), neither below d nor
+    above the padding; d = 64 as padded, and SD1.5's 40 and 80 cut."""
+    qk, pv = fa.product_widths(d)
+    pad = fa.padded_width(d)
+    assert d <= qk <= pad and qk % 16 == 0 and qk - d < 16
+    assert d < pv <= pad or d == pv == 64
+    cut = max(qk, pv) < pad
+    assert cut == (d not in (56, 64, 120))
+    assert fa.product_widths(64) == (64, 64)
+    assert fa.product_widths(40) == (48, 48) and fa.product_widths(80) == (80, 88)
+    assert fa.padded_width(d) == (64 if d <= 64 else 128)
+
+
 def test_plain_sums_rounded_p_in_bf16():
     """Narrow kernels normalise by the sum of P rounded to v's dtype (the
     TPU kernel's ones column); the wide kernel by the fp32 P."""
@@ -131,6 +160,43 @@ def test_cuda_kernel_matches_plain(name, d, dtype, b, lq, lk):
     h = 1 if name == "wide" else 4
     q, k, v = (torch.from_numpy(x).to(dev, getattr(torch, dtype)) for x in _qkv(b, lq, lk, h, d, seed=5))
     _check_on_card(name, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nomax", "max"])
+@pytest.mark.parametrize("d", [32, 40, 48, 56, 72, 80, 96, 120])
+@pytest.mark.parametrize("lq,lk", [(1380, 5400), (5400, 1380)])
+def test_cuda_narrow_at_the_heads_width(name, d, lq, lk):
+    """K1 and K2 at the head's width against the same wrapper on q, k and v
+    zero-padded to 64 columns (d < 64) or 120 (d > 64; the bf16 narrow
+    kernels take d < 128, and 120 runs the 128-column tiles) with the same
+    explicit scale.  The scores are equal (the zero columns add exactly 0).
+    The outputs differ by one bf16 ulp in about 1e-4 of the elements,
+    largest 4.9e-4 (one ulp at 0.06-0.12): the normaliser is the ones
+    column of P V, summed by the tensor core in its order, where the padded
+    d = 64 run sums it in the threads (the kernel without the ones column
+    was bit-equal to the padded run at every d and both lengths).  So: at
+    most one ulp apart, on at most 1e-3 of the elements, and within the
+    file's bound of the plain version.  A cut launch counts in
+    ``cut_launches``."""
+    dev = _cuda()
+    wrapper = getattr(fa, f"flash_attention_{name}")
+    q, k, v = (torch.from_numpy(x).to(dev, torch.bfloat16) for x in _qkv(2, lq, lk, 3, d, seed=d + lq))
+    scale = d**-0.5
+    wide = 64 if d < 64 else 120
+    pad = lambda t: torch.nn.functional.pad(t, (0, wide - d)).contiguous()  # noqa: E731
+    before, cut_before = wrapper.launches, wrapper.cut_launches
+    got = wrapper(q, k, v, scale)
+    padded = wrapper(pad(q), pad(k), pad(v), scale)[..., :d]
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert wrapper.cut_launches == cut_before + (max(fa.product_widths(d)) < fa.padded_width(d))
+    ulps = (got.view(torch.int16).int() - padded.view(torch.int16).int()).abs()
+    assert torch.equal(got.sign(), padded.sign()) and ulps.max().item() <= 1
+    assert (ulps > 0).float().mean().item() <= 1e-3
+    plain = fa.attention_exp2_reference(q, k, v, scale, no_max=name == "nomax")
+    err, ref_scale = (got.float() - plain.float()).abs().max().item(), plain.float().abs().max().item()
+    assert err <= 2e-2 * ref_scale, (err, ref_scale)
 
 
 @pytest.mark.cuda

@@ -64,5 +64,6 @@ def test_cuda_random_relight_pipeline_launches():
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
     want = cs.relight_kernel_launches(attn, pipe, pipe.last_chunks, (32, 40), 3, "flash_attention_nomax")
     assert launches == want and want["flash_attention_nomax"] > 0 and want["flash_attention_wide"] > 0
+    assert fa.flash_attention_nomax.cut_launches == launches["flash_attention_nomax"]  # d = 40 and 80
     for c in (out.R_pred, out.G_pred, out.B_pred):
         assert c.shape == (6, 1, 256, 320) and np.isfinite(c).all() and c.min() >= 0 and c.max() <= 1

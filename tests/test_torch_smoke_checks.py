@@ -198,6 +198,26 @@ def test_relight_launches_implied_by_chunks():
         "flash_attention_wide": 6 * 80 + 5 * 60 + 12 + 24}
 
 
+def test_relight_cut_launches_are_every_narrow_launch():
+    """SD1.5's narrow heads are d = 40 and 80: every K1 launch of a relight
+    call runs its products narrower than the padding; SD2's d = 64 none."""
+    from rollingdepth_torch.models.unet import UNetConfig
+    from rollingdepth_torch.ops import attention as attn
+    from rollingdepth_torch.ops import flash_attention as fa
+
+    class Pipe:
+        class unet:
+            config = UNetConfig.sd15(12)
+
+    chunks = {"encode": 12, "t2i_unet": 60, "unet": 80, "decode": 24}
+    want = cs.relight_kernel_launches(attn, Pipe, chunks, (80, 90), 3, "flash_attention_nomax")
+    assert cs.relight_cut_launches(attn, fa, Pipe, chunks, (80, 90), 3, "flash_attention_nomax") == {
+        "flash_attention_nomax": want["flash_attention_nomax"], "flash_attention_max": 0}
+    Pipe.unet.config = UNetConfig.sd21()
+    assert cs.relight_cut_launches(attn, fa, Pipe, chunks, (54, 96), 3, "flash_attention_max") == {
+        "flash_attention_nomax": 0, "flash_attention_max": 0}
+
+
 def test_relight_launches_match_a_run(monkeypatch):
     """The rule against the attention calls a whole relight forward sends
     to the auto rule's kernels (on the CPU, the dispatch spied on as if the
