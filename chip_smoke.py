@@ -252,27 +252,27 @@ def held_equal(path: str, a, b, seconds_added: float, measure_only: bool = False
 def solve_probe():
     """Records what the co-alignment solves do meanwhile: each
     ``DepthAligner.run`` call's config and arguments (``calls``), the
-    ``_Solve`` that ran each solve (``solves``), and the kernel's launches
+    ``aligner.Problem`` of each solve (``solves``), and the kernel's launches
     (``launches``, read when the block ends)."""
     from rollingdepth_torch import aligner
     from rollingdepth_torch.ops import coalign as co
 
     probe = {"calls": [], "solves": []}
-    run, solve_run, before = aligner.DepthAligner.run, aligner._Solve.run, co.coalign.launches
+    run, solve, before = aligner.DepthAligner.run, aligner.solve, co.coalign.launches
 
     def recording_run(self, *args, **kwargs):
         probe["calls"].append((self.config, args, kwargs))
         return run(self, *args, **kwargs)
 
-    def recording_solve_run(self, kernel):
-        probe["solves"].append(self)
-        return solve_run(self, kernel)
+    def recording_solve(p, kernel):
+        probe["solves"].append(p)
+        return solve(p, kernel)
 
-    aligner.DepthAligner.run, aligner._Solve.run = recording_run, recording_solve_run
+    aligner.DepthAligner.run, aligner.solve = recording_run, recording_solve
     try:
         yield probe
     finally:
-        aligner.DepthAligner.run, aligner._Solve.run = run, solve_run
+        aligner.DepthAligner.run, aligner.solve = run, solve
         probe["launches"] = co.coalign.launches - before
 
 
@@ -362,7 +362,7 @@ def solve_kernel_check(torch, path: str, probe: dict, smi: str) -> dict:
     # each output within the tolerance of the CPU's run, or no farther from it than twice the card's eager run
     short_ok = all(e <= SOLVE_TOL or k <= 2 * c for e, k, c in short_err.values())
     entry = rerun["solves"][0]
-    view_bytes = 4 * sum(n * w for n, w in zip(entry.sizes, entry.widths)) * entry.p_dim
+    view_bytes = 4 * sum(n * w for n, w in zip(entry.sizes, entry.widths)) * entry.views.shape[-1]
     record = {"phase": "solve", "path": path, "views": [list(v.shape) for v in args[0]],
               "table": list(entry.slots.shape), "iterations": cfg.num_iterations,
               "inverse_term": cfg.depth_loss_weight != 0.0, "solves_in_call": len(probe["calls"]),
@@ -1411,15 +1411,11 @@ PAR_PARAMS_TOL = 1e-5
 
 
 def _free_card(torch) -> dict:
-    """Free what this process holds cached on the card: cuBLAS's workspaces
-    too (a live block pins its whole cached segment) and the solves' cached
-    static tensors (a later solve allocates them again); returns what it
-    still holds and the card's memory in use (all processes)."""
+    """Free what this process holds cached on the card, cuBLAS's workspaces
+    too (a live block pins its whole cached segment); returns what it still
+    holds and the card's memory in use (all processes)."""
     import gc
 
-    from rollingdepth_torch import aligner
-
-    aligner._SOLVES.clear()
     gc.collect()
     torch._C._cuda_clearCublasWorkspaces()  # cuBLAS keeps its workspaces in the caching allocator
     torch.cuda.empty_cache()
@@ -1722,10 +1718,10 @@ def main(argv=None) -> int:
     from rollingdepth_torch.pipelines.snippets import snippet_index_matrix
     from rollingdepth_torch.tools import bench_flash_variants as bench
     from rollingdepth_torch.tools import multihost_demo as demo_mod
+    from rollingdepth_torch.utils.device import card_name
     from rollingdepth_torch.utils.synthetic import FAST_PRESET, FULL_PRESET, PAPER_PRESET, random_depth_pipeline
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     log(smi)
     # fp32 references run in full fp32: TF32 off for matmuls and cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -19,17 +19,18 @@ refinement, at full resolution, slot by slot (``frame_sum``).
 
 On the card the whole solve, every Adam step, is one launch of a
 hand-written kernel (``ops/coalign.py``, ``csrc/coalign.cu``), as the JAX
-package runs it as one jitted ``lax.scan``; its static tensors are cached
-per shape (``_SOLVES``), as JAX caches its scans.  On the CPU the plain
-version runs: the same step op by op with autograd (``_Solve.step``), optax's
-``adam`` written out in tensor ops (``adam_update_``), reading only device
-tensors built before the solve, the step count and the loss history included.
+package runs it as one jitted ``lax.scan``.  Each call builds its solve's
+tensors (``Problem``) and drops them when it returns: nothing outlives a
+call.  On the CPU the plain version runs: the same step op by op with
+autograd (``plain_step``), optax's ``adam`` written out in tensor ops
+(``adam_update_``), reading only device tensors built before the solve, the
+step count and the loss history included.  ``solve`` runs either.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,11 +92,6 @@ def frame_sum(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.5, 0.9, 1e-8  # the JAX package's optax.adam(lr, b1=0.5, b2=0.9, eps=1e-8)
 
-# The kernel's solves' static tensors, shared by every DepthAligner as the
-# JAX package's _SOLVE_CACHE shares its jitted scans (each caller builds a
-# new aligner): solve_key -> _Solve.  Unbounded, as JAX's is.
-_SOLVES: Dict[tuple, "_Solve"] = {}
-
 
 def adam_update_(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                  count: torch.Tensor, lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
@@ -114,128 +110,141 @@ def adam_update_(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu
     params.sub_(update * lr)
 
 
-def solve_key(view_shapes, table_shape, masked: bool, cfg: AlignerConfig, device) -> tuple:
-    """What a solve's static tensors are specific to: the views' shapes, the
-    frame table's shape and whether it has empty slots, the inverse term,
-    the config (the iterations included) and the device."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return (tuple(tuple(s) for s in view_shapes), tuple(table_shape), masked, cfg.depth_loss_weight != 0.0, cfg,
-            device)
+@dataclasses.dataclass
+class Problem:
+    """One solve's tensors, built by ``build`` for one call on the views'
+    device and dropped when the call returns.
+
+    ``views`` [n_windows, w_max, P] holds the groups' windows in order (a
+    shorter group's missing frames are zero rows that nothing reads);
+    ``slots`` [T, K] each (frame, slot)'s row of the flattened views, -1
+    for an empty slot; ``sizes`` and ``widths`` each group's window count
+    and width.  The steps write ``params`` (every window's s, then its t;
+    1 and 0 at first), the moments and the [iters, 3] history.  For the
+    plain steps ``build`` also makes, from the host, every table they read:
+    each slot's row of the views (``rows``), the empty slots' mask
+    (``keep``, None when there is none), each group's frame indices
+    (``idx``), each frame's coverage (``cnt``, at least 1) and whether it is
+    covered, and the step count; so a step reads only device tensors."""
+
+    cfg: AlignerConfig
+    views: torch.Tensor
+    slots: np.ndarray
+    sizes: List[int]
+    widths: List[int]
+    params: torch.Tensor
+    mu: torch.Tensor
+    nu: torch.Tensor
+    history: torch.Tensor
+    rows: Optional[torch.Tensor] = None
+    keep: Optional[torch.Tensor] = None
+    idx: Sequence[torch.Tensor] = ()
+    cnt: Optional[torch.Tensor] = None
+    covered: Optional[torch.Tensor] = None
+    count: Optional[torch.Tensor] = None
+
+    @classmethod
+    def build(cls, cfg: AlignerConfig, views, table: np.ndarray, idx, counts: torch.Tensor,
+              plain: bool) -> "Problem":
+        """The problem of ``views`` (each group's [S_g, w_g, P]) and the
+        frame table ``table`` [T, K] from ``frame_table``."""
+        dev = views[0].device
+        sizes, widths = [v.shape[0] for v in views], [v.shape[1] for v in views]
+        n_all, w_max, bounds = sum(sizes), max(widths), np.concatenate([[0], np.cumsum(sizes)])
+        padded = torch.zeros((n_all, w_max, views[0].shape[-1]), device=dev)
+        for v, lo in zip(views, bounds[:-1]):
+            padded[lo : lo + v.shape[0], : v.shape[1]] = v
+        # each window row of the table (groups flattened row-major, in order) at its place in the padded views
+        place = np.concatenate([((lo + np.arange(v.shape[0]))[:, None] * w_max + np.arange(v.shape[1])).reshape(-1)
+                                for v, lo in zip(views, bounds[:-1])])
+        slots = np.append(place, -1)[table]  # an empty slot (row R) is -1
+        params = torch.zeros((2, n_all), device=dev)
+        params[0] = 1.0
+        p = cls(cfg, padded, slots, sizes, widths, params, torch.zeros_like(params), torch.zeros_like(params),
+                torch.zeros((cfg.num_iterations, 3), device=dev))
+        if plain:
+            p.rows = torch.as_tensor(np.maximum(slots, 0), device=dev)
+            if (slots < 0).any():
+                p.keep = torch.as_tensor((slots >= 0)[..., None], dtype=torch.float32, device=dev)
+            p.idx = idx
+            p.cnt = counts.clamp(min=1.0)[:, None]
+            p.covered = (counts > 0)[:, None]
+            p.count = torch.zeros(1, dtype=torch.long, device=dev)
+        return p
+
+    @property
+    def bounds(self) -> np.ndarray:
+        """Each group's first window, and the window count at the end."""
+        return np.concatenate([[0], np.cumsum(self.sizes)])
+
+    @property
+    def denom(self) -> float:
+        """What the loss's sums are divided by: every window row's values."""
+        return float(sum(self.widths) * self.slots.shape[0] * self.views.shape[-1])
 
 
-class _Solve:
-    """One solve's static tensors, for one ``solve_key``: the padded views,
-    the parameters (every window's s, then its t), the moments and the
-    history, which the kernel writes; and the eager step's tables and step
-    count.  ``load`` writes a call's views (and, for the eager step, its
-    tables); ``run`` solves from s = 1, t = 0; ``step`` runs one Adam step
-    of the plain version and reads only these tensors (no host sync, no
-    tensor made from the host)."""
-
-    def __init__(self, key: tuple):
-        view_shapes, (n_frames, k), masked, self.use_inv, self.cfg, self.device = key
-        self.sizes = [s[0] for s in view_shapes]
-        self.widths = [s[1] for s in view_shapes]
-        self.p_dim = view_shapes[0][-1]
-        self.bounds = np.concatenate([[0], np.cumsum(self.sizes)])
-        self.denom = float(sum(self.widths) * n_frames * self.p_dim)
-        dev, n_all = self.device, sum(self.sizes)
-        self.v_all = torch.zeros((n_all, max(self.widths), self.p_dim), device=dev)
-        self.slots = np.zeros((n_frames, k), np.int64)  # each (frame, slot)'s row of v_all, -1 empty
-        self.rows = torch.zeros((n_frames, k), dtype=torch.long, device=dev)
-        self.keep = torch.ones((n_frames, k, 1), device=dev) if masked else None
-        self.idx = [torch.zeros(s * w, dtype=torch.long, device=dev) for s, w in zip(self.sizes, self.widths)]
-        self.cnt = torch.ones((n_frames, 1), device=dev)
-        self.covered = torch.ones((n_frames, 1), dtype=torch.bool, device=dev)
-        self.params = torch.zeros((2, n_all), device=dev)  # every window's s, then its t
-        self.mu, self.nu = torch.zeros_like(self.params), torch.zeros_like(self.params)
-        self.count = torch.zeros(1, dtype=torch.long, device=dev)
-        self.history = torch.zeros((self.cfg.num_iterations, 3), device=dev)
-
-    def load(self, views, slots: np.ndarray, idx, counts: torch.Tensor, kernel: bool) -> None:
-        self.v_all.zero_()
-        for v, lo in zip(views, self.bounds[:-1]):
-            self.v_all[lo : lo + v.shape[0], : v.shape[1]] = v
-        self.slots = slots
-        if kernel:  # the kernel reads the views and the host's table only
+def solve(p: Problem, kernel: bool) -> None:
+    """``num_iterations`` Adam steps from s = 1, t = 0 into ``p``'s
+    parameters, moments and history: one launch of the kernel, or the plain
+    version's steps."""
+    cfg = p.cfg
+    with span("rd.solve.replay"):
+        if kernel:
+            coalign(p.views, p.slots, p.sizes, p.params, p.mu, p.nu, p.history, lr=cfg.lr, b1=ADAM_B1, b2=ADAM_B2,
+                    eps=ADAM_EPS, lmda2=cfg.lmda2, lmda3=cfg.lmda3, loss_scale=cfg.loss_scale,
+                    depth_loss_weight=cfg.depth_loss_weight, denom=p.denom)
             return
-        self.rows.copy_(torch.from_numpy(np.maximum(slots, 0)))
-        if self.keep is not None:
-            self.keep.copy_(torch.from_numpy(slots >= 0)[..., None])
-        for dst, src in zip(self.idx, idx):
-            dst.copy_(src)
-        self.cnt.copy_(counts.clamp(min=1.0)[:, None])
-        self.covered.copy_((counts > 0)[:, None])
+        for _ in range(cfg.num_iterations):
+            plain_step(p)
 
-    def reset(self) -> None:
-        """s = 1, t = 0, the moments, the step count and the history 0."""
-        self.params[0] = 1.0
-        self.params[1] = 0.0
-        for x in (self.mu, self.nu, self.count, self.history):
-            x.zero_()
 
-    def run(self, kernel: bool) -> None:
-        """``num_iterations`` steps from the reset state: one launch of the
-        kernel, or the eager steps."""
-        cfg = self.cfg
-        with span("rd.solve.replay"):
-            if kernel:
-                coalign(self.v_all, self.slots, self.sizes, self.params, self.mu, self.nu, self.history, lr=cfg.lr,
-                        b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, lmda2=cfg.lmda2, lmda3=cfg.lmda3,
-                        loss_scale=cfg.loss_scale, depth_loss_weight=cfg.depth_loss_weight, denom=self.denom)
-                return
-            self.reset()
-            for _ in range(cfg.num_iterations):
-                self.step()
+@torch.enable_grad()  # callers may run under no_grad (the pipelines do)
+def plain_step(p: Problem) -> None:
+    """One Adam step of the plain version, on ``p``'s device tensors only."""
+    cfg, bounds, widths, p_dim = p.cfg, p.bounds, p.widths, p.views.shape[-1]
+    use_inv = cfg.depth_loss_weight != 0.0
+    params = p.params.detach().requires_grad_()
+    s_all, t_all = params[0], params[1]
 
-    @torch.enable_grad()  # callers may run under no_grad (the pipelines do)
-    def step(self) -> None:
-        """One Adam step of the solve on the static tensors."""
-        cfg, bounds, widths, p_dim, use_inv = self.cfg, self.bounds, self.widths, self.p_dim, self.use_inv
-        params = self.params.detach().requires_grad_()
-        s_all, t_all = params[0], params[1]
+    def frame_mean(a):
+        g = a.reshape(-1, p_dim)[p.rows]
+        return (g if p.keep is None else g * p.keep).sum(1) / p.cnt
 
-        def frame_mean(a):
-            g = a.reshape(-1, p_dim)[self.rows]
-            return (g if self.keep is None else g * self.keep).sum(1) / self.cnt
-
-        s_list = [s_all[bounds[i] : bounds[i + 1]] for i in range(len(widths))]
-        t_list = [t_all[bounds[i] : bounds[i + 1]] for i in range(len(widths))]
-        a_all = self.v_all * s_all[:, None, None] + t_all[:, None, None]
-        inv_all = a_all.clamp(min=1e-3) ** -1 if use_inv else None
-        a_list = [a_all[bounds[i] : bounds[i + 1], :w] for i, w in enumerate(widths)]
-        inv_list = [inv_all[bounds[i] : bounds[i + 1], :w] for i, w in enumerate(widths)] if use_inv else []
-        with torch.no_grad():  # the per-frame targets are detached
-            target = frame_mean(a_all)
-            scale = target.abs().mean(-1, keepdim=True)
-            if use_inv:
-                target_inv = frame_mean(inv_all)
-                scale_inv = target_inv.abs().mean(-1, keepdim=True)
-        loss_m = 0.0
-        loss_inv = 0.0
-        for gi, (a, i) in enumerate(zip(a_list, self.idx)):
-            shape = a.shape
-            tgt = target[i].reshape(shape)
-            sc = scale[i].reshape(shape[:2] + (1,)).clamp(min=1e-12)
-            loss_m = loss_m + ((a - tgt) / sc).abs().sum()
-            if use_inv:
-                tgt_inv = target_inv[i].reshape(shape)
-                sc_inv = scale_inv[i].reshape(shape[:2] + (1,)).clamp(min=1e-12)
-                loss_inv = loss_inv + ((inv_list[gi] - tgt_inv) / sc_inv).abs().sum()
-        loss = loss_m / self.denom + cfg.depth_loss_weight * (loss_inv / self.denom)
-        soft = 0.0
-        for s, t in zip(s_list, t_list):
-            soft = soft + cfg.lmda2 * torch.relu(1.0 - s).pow(2).sum() / s.shape[0]
-            soft = soft + cfg.lmda3 * t.pow(2).sum() / t.shape[0]
-        total = cfg.loss_scale * loss + soft
-        (grads,) = torch.autograd.grad(total, params)
-        with torch.no_grad():
-            row = torch.stack([total.detach(), torch.where(self.covered, target, torch.inf).amin(),
-                               torch.where(self.covered, target, -torch.inf).amax()])
-            self.history.index_copy_(0, self.count, row[None])  # at the device's step count
-            adam_update_(self.params, grads, self.mu, self.nu, self.count, cfg.lr)
+    s_list = [s_all[bounds[i] : bounds[i + 1]] for i in range(len(widths))]
+    t_list = [t_all[bounds[i] : bounds[i + 1]] for i in range(len(widths))]
+    a_all = p.views * s_all[:, None, None] + t_all[:, None, None]
+    inv_all = a_all.clamp(min=1e-3) ** -1 if use_inv else None
+    a_list = [a_all[bounds[i] : bounds[i + 1], :w] for i, w in enumerate(widths)]
+    inv_list = [inv_all[bounds[i] : bounds[i + 1], :w] for i, w in enumerate(widths)] if use_inv else []
+    with torch.no_grad():  # the per-frame targets are detached
+        target = frame_mean(a_all)
+        scale = target.abs().mean(-1, keepdim=True)
+        if use_inv:
+            target_inv = frame_mean(inv_all)
+            scale_inv = target_inv.abs().mean(-1, keepdim=True)
+    loss_m = 0.0
+    loss_inv = 0.0
+    for gi, (a, i) in enumerate(zip(a_list, p.idx)):
+        shape = a.shape
+        tgt = target[i].reshape(shape)
+        sc = scale[i].reshape(shape[:2] + (1,)).clamp(min=1e-12)
+        loss_m = loss_m + ((a - tgt) / sc).abs().sum()
+        if use_inv:
+            tgt_inv = target_inv[i].reshape(shape)
+            sc_inv = scale_inv[i].reshape(shape[:2] + (1,)).clamp(min=1e-12)
+            loss_inv = loss_inv + ((inv_list[gi] - tgt_inv) / sc_inv).abs().sum()
+    loss = loss_m / p.denom + cfg.depth_loss_weight * (loss_inv / p.denom)
+    soft = 0.0
+    for s, t in zip(s_list, t_list):
+        soft = soft + cfg.lmda2 * torch.relu(1.0 - s).pow(2).sum() / s.shape[0]
+        soft = soft + cfg.lmda3 * t.pow(2).sum() / t.shape[0]
+    total = cfg.loss_scale * loss + soft
+    (grads,) = torch.autograd.grad(total, params)
+    with torch.no_grad():
+        row = torch.stack([total.detach(), torch.where(p.covered, target, torch.inf).amin(),
+                           torch.where(p.covered, target, -torch.inf).amax()])
+        p.history.index_copy_(0, p.count, row[None])  # at the device's step count
+        adam_update_(p.params, grads, p.mu, p.nu, p.count, cfg.lr)
 
 
 class DepthAligner:
@@ -293,40 +302,24 @@ class DepthAligner:
         group's missing frames are zero rows that nothing reads), so each
         step applies (s, t) once.  Each target sums the table's [T, K] rows,
         with an empty slot's row masked to zero: in the kernel slot by slot
-        from the left, in the eager step as one gather and one reduction
+        from the left, in the plain step as one gather and one reduction
         over K (PyTorch's, with no atomic add: its order is fixed by the
         shape and the device).
 
-        Everything that reads the host (the row table, its mask, the frame
-        indices) is built here.  On the card the whole solve is one launch
-        of the kernel (``ops/coalign.py``), the counterpart of the JAX
-        package's one jitted ``lax.scan``, on static tensors cached per
-        ``solve_key``; ``kernel=False`` runs the plain version's steps
-        eagerly instead (the card's tests and ``chip_smoke.py`` hold the two
-        to the JAX tolerances).  On the CPU the steps always run eagerly."""
+        The call builds what its solve needs (``Problem``) and drops it when
+        it returns.  On the card the whole solve is one launch of the kernel
+        (``ops/coalign.py``), the counterpart of the JAX package's one
+        jitted ``lax.scan``; ``kernel=False`` runs the plain version's steps
+        instead (the card's tests and ``chip_smoke.py`` hold the two to the
+        JAX tolerances).  On the CPU the plain steps always run."""
         cfg = self.config
-        dev = views[0].device
-        sizes = [v.shape[0] for v in views]
-        w_max = max(v.shape[1] for v in views)
-        bounds = np.concatenate([[0], np.cumsum(sizes)])
-        # each window row of the table (groups flattened row-major, in order) at its place in v_all
-        place = np.concatenate([((lo + np.arange(v.shape[0]))[:, None] * w_max + np.arange(v.shape[1])).reshape(-1)
-                                for v, lo in zip(views, bounds[:-1])])
-        slots = np.append(place, -1)[table]  # an empty slot (row R) is -1
-        key = solve_key([tuple(v.shape) for v in views], table.shape, bool((slots < 0).any()), cfg, dev)
-        kernel = kernel and dev.type == "cuda" and cfg.num_iterations > 0
-        solve = _SOLVES.get(key) if kernel else None
-        if solve is None:
-            solve = _Solve(key)
-            if kernel:
-                _SOLVES[key] = solve
+        kernel = kernel and views[0].device.type == "cuda" and cfg.num_iterations > 0
         with span("rd.solve.load"):
-            solve.load(views, slots, idx, counts, kernel)
-        solve.run(kernel)
-        # copies: a later solve of the same key overwrites the static tensors
-        s_out, t_out = solve.params.clone()
+            p = Problem.build(cfg, views, table, idx, counts, plain=not kernel)
+        solve(p, kernel)
+        (s_out, t_out), bounds = p.params, p.bounds
         return ([s_out[bounds[i] : bounds[i + 1]] for i in range(len(views))],
-                [t_out[bounds[i] : bounds[i + 1]] for i in range(len(views))], solve.history.clone())
+                [t_out[bounds[i] : bounds[i + 1]] for i in range(len(views))], p.history)
 
     @torch.no_grad()
     def _merge(self, snippet_ls, table, counts, scales, shifts, mn, restore_shift: bool, seq_len: int):

@@ -5,7 +5,7 @@
 //                        the jitted lax.scan of num_iterations Adam steps
 //                        (no Pallas kernel: XLA compiles the scan whole)
 //
-// The problem (rollingdepth_torch/aligner.py _Solve.step, the plain version):
+// The problem (rollingdepth_torch/aligner.py plain_step, the plain version):
 // window i has a scale s_i and a shift t_i; a window row r = (i, j) holds the
 // P subsampled values v_r of one frame; a_r = v_r * s_i + t_i.  Frame f's
 // target is the sum of the a_r of the rows covering it, over the frame

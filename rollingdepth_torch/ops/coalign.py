@@ -10,7 +10,7 @@ whole.  The kernel does the same on the card: one launch runs every step,
 each block keeping its frames' window rows in shared memory and the windows
 it needs in its own copy of the Adam state, with one grid barrier a step
 (``csrc/coalign.cu`` says how).  Its plain version is
-``aligner._Solve.step``, the same step op by op with autograd, which the CPU
+``aligner.plain_step``, the same step op by op with autograd, which the CPU
 runs.
 
 ``coalign(views, place, sizes, params, mu, nu, history, ...)`` takes the

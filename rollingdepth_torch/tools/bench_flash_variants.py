@@ -16,13 +16,13 @@ of all rows last.  Needs a CUDA card.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 from typing import List
 
 import torch
 
 from ..ops import flash_variants as fv
+from ..utils.device import card_name
 
 VARIANTS = (
     ("exp2", fv.flash_exp2),
@@ -74,8 +74,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_flash_variants: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     print(smi, flush=True)
     rows = sweep()
     print(json.dumps({"card": smi, "rows": rows}), flush=True)

@@ -26,9 +26,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from typing import Callable, List
+
+from ..utils.device import card_name
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
@@ -140,8 +141,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bench_int8: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     print(smi, flush=True)
     rows = sweep(args.full, args.iters)
     print(json.dumps({"card": smi, "torch": torch.__version__, "rows": rows}))

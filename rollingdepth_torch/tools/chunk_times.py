@@ -19,8 +19,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
+
+from ..utils.device import card_name
 
 
 def plain_attention_ms(fn, iters: int) -> float:
@@ -56,8 +57,7 @@ def main(argv=None) -> int:
     dtype = DTYPE_MAP[settings.dtype]
     width = args.res or settings.res
     height = width * 9 // 16
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     pipe, _ = random_depth_pipeline("cuda", dtype, seed=0, snippet_batch=settings.snippet_batch)
     gen = torch.Generator(device="cuda").manual_seed(1)
     h, w, bs = height // 8, width // 8, settings.max_vae_bs

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import conv3x3 as conv
+from ..utils.device import card_name
 
 SHAPES = ((4, 432, 768, 128, 128), (4, 216, 384, 256, 256), (4, 108, 192, 512, 512))
 TRACE_CTAS, TRACE_TILES, TRACE_FIELDS = 1024, 64, 6  # csrc/conv3x3.cu's trace layout
@@ -78,8 +79,7 @@ def main() -> int:
         return 2
     from .bench_flash_variants import cuda_ms
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     print(smi, flush=True)
     lib = build_traced()
     fn, read = lib.rd_conv3x3_db, lib.rd_conv3x3_trace

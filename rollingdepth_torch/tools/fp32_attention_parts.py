@@ -14,8 +14,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
+
+from ..utils.device import card_name
 
 SHAPES = (("flash_attention_nomax", (8, 15552, 5, 64)), ("flash_attention_wide", (4, 5184, 1, 512)))
 ITERS = 5
@@ -34,8 +35,7 @@ def main(argv=None) -> int:
     from ..ops import flash_attention as fa
     from .bench_flash_variants import cuda_ms
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     for name, shape in SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(0)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))

@@ -42,9 +42,10 @@ import argparse
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
+
+from ..utils.device import card_name
 
 
 def device_shares(events, prefixes=("rollingdepth.", "rollingimg.")):
@@ -197,8 +198,7 @@ def main(argv=None) -> int:
     else:
         width = args.width or settings.res
         height = args.height or width * 9 // 16
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     # fp32 in full fp32, as chip_smoke.py and chunk_times run it: TF32 off for matmuls and cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -13,7 +13,7 @@ when optax runs op by op; under ``jax.jit`` XLA's fused CPU code rounds
 some of its products differently, by up to one fp32 ulp of a parameter a
 step."""
 
-import dataclasses
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from rollingdepth_torch import aligner as port_aligner
-from rollingdepth_torch.aligner import AlignerConfig, DepthAligner, adam_update_, solve_key
+from rollingdepth_torch.aligner import AlignerConfig, DepthAligner, adam_update_
 from rollingdepth_torch.pipelines.snippets import snippet_index_matrix
 from rollingdepth_tpu.aligner import AlignerConfig as JAlignerConfig
 from rollingdepth_tpu.aligner import DepthAligner as JDepthAligner
@@ -178,21 +178,6 @@ def test_adam_update_matches_optax(mode, steps):
         np.testing.assert_allclose(tp.numpy(), np.asarray(p), rtol=0, atol=1e-6)
 
 
-def test_solve_key():
-    """One key for one shape set; a new key for another table shape, an
-    empty slot, the inverse term, another config or another device."""
-    views, table, cfg = [(20, 3, 48), (4, 3, 48)], (10, 6), AlignerConfig(factor=3, depth_loss_weight=0.0)
-    key = solve_key(views, table, False, cfg, "cuda:0")
-    assert key == solve_key([list(v) for v in views], np.zeros(table).shape, False, AlignerConfig(
-        factor=3, depth_loss_weight=0.0), torch.device("cuda", 0))
-    others = [solve_key(views, (10, 5), False, cfg, "cuda:0"), solve_key(views, table, True, cfg, "cuda:0"),
-              solve_key(views, table, False, dataclasses.replace(cfg, depth_loss_weight=1.0), "cuda:0"),
-              solve_key(views, table, False, dataclasses.replace(cfg, num_iterations=10), "cuda:0"),
-              solve_key(views, table, False, cfg, "cuda:1"), solve_key(views, table, False, cfg, "cpu"),
-              solve_key([(20, 3, 48), (5, 3, 48)], table, False, cfg, "cuda:0")]
-    assert len({key, *others}) == 1 + len(others)
-
-
 def test_zero_iterations_give_the_plain_average():
     """No step: s = 1, t = 0, an empty history, and the merge is each
     frame's mean over the windows that cover it."""
@@ -207,27 +192,66 @@ def test_zero_iterations_give_the_plain_average():
             total[frame] += g[w]
             count[frame] += 1
     np.testing.assert_allclose(merged.numpy(), total / count[:, None, None, None], rtol=1e-6, atol=1e-6)
-    assert not port_aligner._SOLVES  # the CPU runs its steps eagerly and caches nothing
 
 
 def test_step_reads_nothing_from_the_host(monkeypatch):
-    """The step that the card captures makes no tensor from the host and
-    reads no value back."""
+    """The plain steps make no tensor from the host and read no value back:
+    they read only the device tensors that the call built before them."""
     def refuse(*args, **kwargs):
         raise AssertionError("the step reached the host")
 
-    step = port_aligner._Solve.step
+    solve = port_aligner.solve
 
-    def guarded(self):
+    def guarded(p, kernel):
         with monkeypatch.context() as m:
             for name in ("item", "tolist", "nonzero", "numpy", "__bool__"):
                 m.setattr(torch.Tensor, name, refuse)
             for name in ("from_numpy", "as_tensor", "tensor", "nonzero"):
                 m.setattr(torch, name, refuse)
-            step(self)
+            solve(p, kernel)
 
-    monkeypatch.setattr(port_aligner._Solve, "step", guarded)
+    monkeypatch.setattr(port_aligner, "solve", guarded)
     idx, groups = _groups(positive=True)
     for weight in (0.0, 1.0):
         merged = _run_port(groups, idx, 10, factor=3, depth_loss_weight=weight, num_iterations=3)[0]
         assert torch.isfinite(merged).all()
+
+
+def _module_state(module) -> dict:
+    """Each global of ``module``: its object, and its length if it holds others."""
+    return {k: (id(v), len(v) if isinstance(v, (dict, list, set)) else None)
+            for k, v in vars(module).items() if not k.startswith("__")}
+
+
+@pytest.mark.parametrize("lengths", [(10, 13), (13, 10)])
+@pytest.mark.parametrize("path", ["latent", "inverse"])
+def test_solves_of_different_lengths_share_nothing(monkeypatch, path, lengths):
+    """A solve after another of a different clip length gives the bits it
+    gives alone, and each call drops its solve: the aligner module holds
+    nothing more after either, and no ``Problem`` outlives its call."""
+    kw = dict(factor=3, num_iterations=20, depth_loss_weight=0.0 if path == "latent" else 1.0)
+    run_kw = dict(restore_shift=True, channels_last=True) if path == "latent" else {}
+    clips = {n: _groups(n_frames=n, positive=path == "inverse", channels_last=path == "latent", seed=n)
+             for n in lengths}
+    problems, solve = [], port_aligner.solve
+
+    def recording(p, kernel):
+        problems.append(weakref.ref(p))
+        solve(p, kernel)
+
+    monkeypatch.setattr(port_aligner, "solve", recording)
+
+    def run(n):
+        idx, groups = clips[n]
+        merged, scales, shifts, history = DepthAligner(AlignerConfig(**kw)).run(
+            [torch.from_numpy(g) for g in groups], [1, 3], index_mats=idx, seq_len=n, **run_kw)
+        return [merged, *scales, *shifts, history]
+
+    first, second = lengths
+    state = _module_state(port_aligner)
+    alone = run(second)
+    runs = [run(first), run(second)]
+    assert _module_state(port_aligner) == state
+    assert len(problems) == 3 and all(ref() is None for ref in problems)
+    assert all(torch.equal(a, b) for a, b in zip(alone, runs[1]))
+    assert runs[0][0].shape[0] == first and runs[1][0].shape[0] == second

@@ -22,8 +22,8 @@
   frames than the card has SMs (a block owns several frames) and rows too
   large for shared memory (read from L2 at each pass);
 - three channel solves of one shape (as relight runs them) and a second
-  call: one cached ``_Solve``, a launch each, each within the tolerance of
-  its eager solve, the second call's the first's bits;
+  call: a launch each, each within the tolerance of its eager solve, the
+  second call's the first's bits;
 - a solve while another thread copies device tensors to the host (as the
   CLI's save pool does): the same bits as without the copies;
 - ``_refine`` on 60 frames (refinement annealed from dilation 25), over
@@ -42,7 +42,6 @@ import numpy as np
 import pytest
 import torch
 
-from rollingdepth_torch import aligner as port_aligner
 from rollingdepth_torch.aligner import AlignerConfig, DepthAligner
 from rollingdepth_torch.ops import coalign as co
 from rollingdepth_torch.pipelines.snippets import snippet_index_matrix
@@ -183,15 +182,13 @@ def test_kernel_cases_match_eager_steps(monkeypatch, case):
 @pytest.mark.cuda
 def test_three_channel_solves_of_one_shape(monkeypatch):
     """Relight's three channel solves, then a second call of one of them:
-    one cached ``_Solve``, a launch each, each within the tolerance of its
-    eager solve, and the second call the first's bits."""
+    a launch each, each within the tolerance of its eager solve, and the
+    second call the first's bits."""
     _cuda()
-    port_aligner._SOLVES.clear()
     idx, groups = _windows((3, 64, 96), positive=True)
     cfg = AlignerConfig(num_iterations=10)
     channels = [[g[:, :, ch : ch + 1] for g in groups] for ch in range(3)]
     got = [_kernel(cfg, c, idx) for c in channels] + [_kernel(cfg, channels[1], idx)]
-    assert len(port_aligner._SOLVES) == 1
     for a, c in zip(got, channels):
         _close(a, _eager(monkeypatch, cfg, c, idx), **TOL)
     assert _equal(got[1], got[3]) and not _equal(got[0], got[1])

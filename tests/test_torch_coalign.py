@@ -5,7 +5,7 @@ The kernel itself runs only on a card (``tests/test_torch_aligner_cuda.py``).
 Here ``emulate`` walks the solve as the kernel does, block by block, reading
 only what ``tables`` gives it (each block's windows, each row's window in
 that list, each window's rows, the owner of each window), and is held to the
-eager step (``aligner._Solve.step``) at the JAX tolerances; so a table that
+plain step (``aligner.plain_step``) at the JAX tolerances; so a table that
 points one block at another's window, drops a row or misorders a window's
 rows fails here, before any card run."""
 
@@ -141,17 +141,17 @@ def emulate(views: torch.Tensor, slots: np.ndarray, sizes, iters: int, cfg: Alig
 
 
 def _eager_solve(monkeypatch, groups, idx, n_frames, cfg, **kw):
-    """The eager solve on the CPU, and the ``_Solve`` it ran on."""
-    solves, run = [], aligner._Solve.run
+    """The eager solve on the CPU, and the ``Problem`` it ran on."""
+    problems, solve = [], aligner.solve
 
-    def recording(self, kernel):
-        solves.append(self)
-        run(self, kernel)
+    def recording(p, kernel):
+        problems.append(p)
+        solve(p, kernel)
 
-    monkeypatch.setattr(aligner._Solve, "run", recording)
+    monkeypatch.setattr(aligner, "solve", recording)
     DepthAligner(cfg).run([torch.from_numpy(g) for g in groups], [1] * len(groups), index_mats=idx,
                           seq_len=n_frames, **kw)
-    return solves[0]
+    return problems[0]
 
 
 @pytest.mark.parametrize("case", ["latent", "inverse", "two_lengths", "frames_per_block"])
@@ -170,7 +170,7 @@ def test_emulated_kernel_matches_the_eager_steps(monkeypatch, case, iters):
     solve = _eager_solve(monkeypatch, groups, idx, n_frames, cfg, channels_last=True, restore_shift=True)
     assert (solve.slots < 0).any() and len(set(solve.widths)) == len(set(lengths))  # edge frames: empty slots
     n_sm = 4 if case == "frames_per_block" else H100_SMS  # 3 frames a block, the last block 1
-    params, history = emulate(solve.v_all, solve.slots, solve.sizes, iters, cfg, solve.denom, n_sm)
+    params, history = emulate(solve.views, solve.slots, solve.sizes, iters, cfg, solve.denom, n_sm)
     np.testing.assert_allclose(params.numpy(), solve.params.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(history.numpy(), solve.history.numpy(), rtol=1e-5, atol=1e-5)
 

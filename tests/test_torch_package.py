@@ -46,7 +46,7 @@ def test_scan_covers_the_package():
     assert {"flash_attention.py", "attention.py", "unet.py", "rollingdepth.py", "chip_smoke.py", "cli.py", "video.py",
             "native_video.py", "colorize.py", "eval.py", "training.py", "training_data.py", "mesh.py", "sharding.py",
             "multihost.py", "launch.py", "multihost_demo.py", "torch_parallel_ranks.py", "quant.py", "profiling.py",
-            "bench_init.py", "bench.py", "bench_int8.py"} <= names
+            "bench_init.py", "bench_int8.py"} <= names
 
 
 def _no_card():
@@ -87,10 +87,32 @@ def test_explicit_cpu_is_accepted():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+H100 = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+@pytest.mark.parametrize("smi, want", [
+    (None, "cpu"),  # no nvidia-smi on the path
+    ("exit 9", "cpu"),  # it fails: no card to read
+    (f"echo '{H100}'", H100),
+    (f"for i in 0 1 2 3; do echo '{H100}'; done", "\n".join([H100] * 4)),  # a line a card
+])
+def test_card_name(smi, want, tmp_path, monkeypatch):
+    """``card_name`` prints what ``nvidia-smi`` reads for the query it is
+    given, or "cpu" where it reads nothing."""
+    from rollingdepth_torch.utils.device import card_name
+
+    if smi is not None:
+        script = tmp_path / "nvidia-smi"
+        script.write_text('#!/bin/sh\n[ "$*" = "--query-gpu=name,power.limit --format=csv,noheader" ] || exit 2\n'
+                          + smi + "\n")
+        script.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    assert card_name() == want
+
+
 @pytest.mark.parametrize("tool, argv", [("profile_fast_path", ["--preset", "full"]),
                                         ("chunk_times", ["--preset", "paper"]),
                                         ("fp32_attention_parts", []),
-                                        ("bench", ["--quantize", "w8a8"]),
                                         ("bench_int8", [])])
 def test_card_tools_refuse_without_a_card(tool, argv, capsys):
     """The timing tools run on the card only: here they exit 2 and say why."""
