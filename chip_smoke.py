@@ -163,8 +163,7 @@ their fp32 instantiation, the paper path's; then the GroupNorm pair, with
 bytes over the call, with its launches by path, the main path's sums over
 all its inputs and each of its inputs), and as its last line
 ``{"ok": true, "device": {...}}``.  The kernels phase also times K1, K2
-and K3 at the relight path's shapes (``relight_shapes`` in their rows; the
-times before the products ran at the head's width as ``earlier_ms``), and
+and K3 at the relight path's shapes (``relight_shapes`` in their rows), and
 K1 bf16 and fp32 at the parallel phase's tp = 2 shapes (``tp_shapes``).
 """
 
@@ -905,13 +904,6 @@ def norm_path_totals(rows: list, path: str) -> dict:
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
 
-# The relight shapes' times before K1 and K2 ran their products at the
-# head's width from K and V padded to whole rows (NVIDIA H100 80GB HBM3,
-# 700 W), printed beside the new ones.
-EARLIER_MS = {("nomax", (8, 21600, 8, 40)): 17.563, ("nomax", (8, 5400, 8, 80)): 1.500,
-              ("max", (8, 21600, 8, 40)): 19.829, ("max", (8, 5400, 8, 80)): 2.038}
-
-
 def kernel_phase(torch, fa):
     """Each kernel against its plain version; returns the main-shape rows."""
     import torch.nn.functional as F
@@ -978,8 +970,6 @@ def kernel_phase(torch, fa):
         row = {"name": name, "shape": [b, lq, h, d], "L_k": lk, "dtype": str(dtype).split(".")[-1],
                **errs, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        if (name, (b, lq, h, d)) in EARLIER_MS and dtype == torch.bfloat16:
-            row["earlier_ms"] = EARLIER_MS[(name, (b, lq, h, d))]
         log(row)
         if row_key in ("relight", "tp"):
             rows[row_key].append(row)

@@ -49,8 +49,10 @@
 // registers, and O += P V with P as the register A operand and V as the
 // transposed (MN-major) B operand in its natural [keys, d] layout.  The
 // consumers take turns on the tensor cores, round robin (named barriers):
-// each turn issues the previous tile's P V and this tile's Q K^T, so one
-// warpgroup's softmax runs under the others' products.
+// turn j issues this tile's Q K^T and then the previous tile's P V, waits
+// for the Q K^T alone, and runs the exp2 half of tile j's softmax under the
+// P V (and under the other consumers' products); it then waits for the P V
+// and rounds and packs P_j, the second half.
 //
 // Every narrow d but 64 (SD1.5's 40 and 80) is narrower than its 64 or 128
 // columns in shared memory.  TMA reads a row of fewer than 64 bf16 columns,
@@ -76,6 +78,25 @@
 // d = 64 runs as before.  K1 at [8, 21600, 8, 40] 17.1-17.6 -> 14.3-14.4 ms
 // (bound 4.8 ms by the head's operations), [8, 5400, 8, 80] 1.57-1.60 ->
 // 1.26-1.31 (bound 0.6); NVIDIA H100 80GB HBM3, 700 W.
+//
+// What bounds K1 at d = 40 then: a tile's softmax costs a consumer thread
+// 64 ex2.approx and 32 cvt.rn.bf16x2.f32 for its 64 scores, both on the
+// SM's quarter-rate pipe (16 an SM-clock, 8 cycles a warp instruction), so
+// 1.5 of its operations a score, 768 cycles a tile for each consumer warp
+// and 1536 for the two that share a sub-partition.  Clock stamps in one CTA
+// of [8, 21600, 8, 40] (1.8 GHz) read 1618 cycles a tile: the exp2 half
+// 720-760, the pack 250-280, the mbarrier waits 187, the wgmma issue
+// 200-330, the wait for Q K^T 20-140; the pipe is busy 95% of the time.
+// The turns used to wait for both products and then run the whole softmax
+// (K1 14.4-14.9 ms); the exp2 half under the P V, with the order pinned by
+// schedule_fence (narrow_fenced), takes 12.1-13.0 ms (NVIDIA H100 80GB HBM3,
+// 700 W).  Part of each tile's
+// exp2 on the FMA pipe as a polynomial (Cody-Waite reduction by adding 1.5 *
+// 2^23, a degree-5 minimax fit, 2^n from n's bits: 11 issue slots a score,
+// within 1.55e-7 of float64) made K1 slower at every width and share tried
+// (1/8 to 1/2): +0.5% to +12.8% at [8, 21600, 8, 40] on the old turns,
+// +5.6% to +20.8% on these, where the issue slots it adds cost more than the
+// quarter-rate cycles it frees.  It is not built (PERF.md, section 6).
 //
 // Wide heads (d <= 512, padded to 128, 256 or 512): one CTA per (64-query
 // tile, batch*head), 32-key tiles in a 2-stage ring.  For d = 512 two
@@ -139,16 +160,14 @@ __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(_
 
 // One key tile's softmax on a wgmma score accumulator of NT 8-key blocks
 // (thread layout of m64nN: s[4*nt + e] is row g + 8*(e >> 1), key 8*nt +
-// 2*tig + (e & 1)).  Scales and masks s, updates the running max m_r and
-// (THREAD_SUM) the partial row sums l_r of rows g and g + 8, rescales the
-// output accumulator by corr, and leaves P rounded to bf16 in pa as wgmma
-// A fragments of 16 keys each.  Without THREAD_SUM the caller sums P in
-// its P V product (a column of ones in V).
-template <int NT, int NACC, bool NO_MAX, bool SUM_ROUNDED, bool PRESCALE_Q, bool BF16_SCORES,
-          bool THREAD_SUM = true>
-__device__ __forceinline__ void softmax_tile(float (&s)[NT * 4], float (&acc)[NACC], uint32_t (&pa)[NT / 2][4],
-                                             float (&m_r)[2], float (&l_r)[2], int k0, int Lk, int tig,
-                                             float scale_log2) {
+// 2*tig + (e & 1)), in two halves.  softmax_exp scales and masks s, updates
+// the running max m_r, the correction corr = exp2(m_old - m_new) of rows g
+// and g + 8 and l_r *= corr, and leaves p = exp2(s - m) in s, touching
+// neither the output accumulator nor pa, so that a P V product in flight
+// runs under it.
+template <int NT, bool NO_MAX, bool PRESCALE_Q, bool BF16_SCORES>
+__device__ __forceinline__ void softmax_exp(float (&s)[NT * 4], float (&m_r)[2], float (&l_r)[2], float (&corr)[2],
+                                            int k0, int Lk, int tig, float scale_log2) {
 #pragma unroll
   for (int i = 0; i < NT * 4; ++i) {
     float x = PRESCALE_Q ? s[i] : s[i] * scale_log2;
@@ -172,14 +191,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT * 4], float (&acc)[NA
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float corr = fast_exp2(m_r[r] - mx[r]);
+      corr[r] = fast_exp2(m_r[r] - mx[r]);
       m_r[r] = mx[r];
-      l_r[r] *= corr;
-#pragma unroll
-      for (int nt = 0; nt < NACC / 4; ++nt) {
-        acc[4 * nt + 2 * r] *= corr;
-        acc[4 * nt + 2 * r + 1] *= corr;
-      }
+      l_r[r] *= corr[r];
     }
     mrow[0] = BF16_SCORES ? round_bf16(m_r[0]) : m_r[0];
     mrow[1] = BF16_SCORES ? round_bf16(m_r[1]) : m_r[1];
@@ -187,7 +201,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT * 4], float (&acc)[NA
 
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
-    float p[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       // a masked key is exactly 0: m is the max over at least one real
@@ -195,16 +208,38 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT * 4], float (&acc)[NA
       // of that is +0
       const float x = s[4 * nt + e];
       const float xm = (BF16_SCORES && !NO_MAX) ? round_bf16(x - mrow[e >> 1]) : x - mrow[e >> 1];
-      p[e] = fast_exp2(xm);
+      s[4 * nt + e] = fast_exp2(xm);
     }
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(p[0], p[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2], p[3]);
+  }
+}
+
+// The second half: rescales the output accumulator by corr (running max),
+// adds p to the partial row sums l_r (THREAD_SUM; rounded to bf16 where
+// SUM_ROUNDED), and leaves p rounded to bf16 in pa as wgmma A fragments of
+// 16 keys each.  Without THREAD_SUM the caller sums P in its P V product (a
+// column of ones in V).
+template <int NT, int NACC, bool NO_MAX, bool SUM_ROUNDED, bool THREAD_SUM>
+__device__ __forceinline__ void softmax_pack(const float (&p)[NT * 4], float (&acc)[NACC], uint32_t (&pa)[NT / 2][4],
+                                             float (&l_r)[2], const float (&corr)[2]) {
+  if (!NO_MAX) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int nt = 0; nt < NACC / 4; ++nt) {
+        acc[4 * nt + 2 * r] *= corr[r];
+        acc[4 * nt + 2 * r + 1] *= corr[r];
+      }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(p[4 * nt + 0], p[4 * nt + 1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(p[4 * nt + 2], p[4 * nt + 3]);
     if (THREAD_SUM && SUM_ROUNDED) {
       l_r[0] += __low2float(lo) + __high2float(lo);
       l_r[1] += __low2float(hi) + __high2float(hi);
     } else if (THREAD_SUM) {
-      l_r[0] += p[0] + p[1];
-      l_r[1] += p[2] + p[3];
+      l_r[0] += p[4 * nt + 0] + p[4 * nt + 1];
+      l_r[1] += p[4 * nt + 2] + p[4 * nt + 3];
     }
     pa[nt >> 1][(nt & 1) * 2 + 0] = bf16_bits(lo);
     pa[nt >> 1][(nt & 1) * 2 + 1] = bf16_bits(hi);
@@ -282,6 +317,27 @@ __host__ __device__ constexpr int narrow_qk_depth(int d) { return (d + 15) / 16 
 __host__ __device__ constexpr bool narrow_ones(int d, bool sum_rounded) { return d != 64 && sum_rounded; }
 __host__ __device__ constexpr int narrow_pv_width(int d, bool sum_rounded) {
   return narrow_ones(d, sum_rounded) ? d + 8 : d;
+}
+
+// Whether the consumers' loop pins its order with schedule_fence: before a
+// turn, and between the exp2 half of a tile's softmax and the wait for the
+// previous tile's P V.  Without the second, ptxas hoists that wait above all
+// but one of the tile's ex2 (and mixes them with the pack's conversions),
+// and the exp2 no longer runs under the P V.  Measured per width (PERF.md,
+// section 6; NVIDIA H100 80GB HBM3, 700 W): K1 at [8, 21600, 8, 40]
+// 13.7-13.9 ms without the fences, 12.1-13.0 with them, 14.4-14.9 on the
+// turns before; [8, 5400, 8, 80] 1.11-1.26 with them against 1.29-1.38.
+// At d = 64, where the products take a larger share of a tile, the fences
+// made K1 slower at each of its eight served shapes, by 1.3-2.9% (median
+// of 40 interleaved pairs, each shape slower in 39 or 40 of them), so d = 64
+// runs without them.
+__host__ __device__ constexpr bool narrow_fenced(int d) { return d != 64; }
+
+// The clock reads of schedule_fence end here: the store is never taken, but
+// ptxas cannot know that, so the reads stay.
+__device__ unsigned long long clock_sink;
+__device__ __forceinline__ void keep_clocks(unsigned long long clocks) {
+  if (clocks == 1) clock_sink = clocks;
 }
 
 // keys per tile: the score accumulator is NK / 2 registers a thread
@@ -396,9 +452,11 @@ flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
     // Turns on the tensor cores, round robin: consumer cw waits on barrier
     // 1 + cw and hands over on the next one's; consumer 0 goes first.  Turn
-    // 0 issues Q K_0^T, turn j the previous tile's P V and Q K_j^T, turn
-    // n_kt the last P V.  The first and last turns are peeled so that no
-    // wgmma sits under a runtime branch (ptxas would serialize them).
+    // 0 issues Q K_0^T, turn j Q K_j^T and then the previous tile's P V,
+    // turn n_kt the last P V.  Turn j waits for its Q K_j^T alone, runs
+    // softmax_exp under the P V, then waits for the P V and runs
+    // softmax_pack.  The first and last turns are peeled so that no wgmma
+    // sits under a runtime branch (ptxas would serialize them).
     const int bar_mine = 1 + cw, bar_next = 1 + (cw + 1) % NCW;
     auto turn_begin = [&]() {
       bar_sync(bar_mine, 256);
@@ -426,29 +484,43 @@ flash_fwd_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         else wgmma_ss_n64(sacc, dq + off, dk + koff, kk > 0);
       }
     };
-    auto softmax = [&](int j) {
-      softmax_tile<NK / 8, DV / 2, NO_MAX, SUM_ROUNDED, PRESCALE_Q, BF16_SCORES, !ONES>(sacc, acc, pa, m_r, l_r,
-                                                                                       j * NK, Lk, tig, scale_log2);
+    float corr[2] = {1.f, 1.f};  // this tile's exp2(m_old - m_new), rows g and g + 8 (unused if NO_MAX)
+    auto softmax_exp2 = [&](int j) {
+      softmax_exp<NK / 8, NO_MAX, PRESCALE_Q, BF16_SCORES>(sacc, m_r, l_r, corr, j * NK, Lk, tig, scale_log2);
     };
+    auto pack = [&]() { softmax_pack<NK / 8, DV / 2, NO_MAX, SUM_ROUNDED, !ONES>(sacc, acc, pa, l_r, corr); };
 
     if (cw == NCW - 1) bar_arrive(1, 256);
     mbar_wait(full_k, 0);
     turn_begin();
     qk_products(0);
     turn_end(false);
-    softmax(0);
+    softmax_exp2(0);
+    pack();
+    unsigned long long clocks = 0;  // schedule_fence's clock reads
     for (int j = 1; j < n_kt; ++j) {
       const int s = j % N_STAGES;                  // stage of tile j
       const int sp = (j + N_STAGES - 1) % N_STAGES;  // stage of tile j - 1
       mbar_wait(full_k + s, (j / N_STAGES) & 1);
       mbar_wait(full_v + sp, ((j - 1) / N_STAGES) & 1);
+      if constexpr (narrow_fenced(D)) schedule_fence(clocks);
       turn_begin();
-      pv_products<DV, NK>(acc, pa, sV + sp * KV_TILE);
       qk_products(s);
-      turn_end(false);
+      wgmma_commit();
+      pv_products<DV, NK>(acc, pa, sV + sp * KV_TILE);
+      wgmma_commit();
+      bar_arrive(bar_next, 256);
+      wgmma_wait<1>();  // Q K_j^T
+      fence_regs(sacc);
+      softmax_exp2(j);
+      if constexpr (narrow_fenced(D)) schedule_fence(clocks);  // the exp2 half stays ahead of the wait
+      wgmma_wait<0>();  // P V of tile j - 1
+      fence_regs(acc);
+      fence_regs(pa);
       mbar_arrive(empty + sp);
-      softmax(j);
+      pack();
     }
+    keep_clocks(clocks);
     const int sl = (n_kt - 1) % N_STAGES;
     mbar_wait(full_v + sl, ((n_kt - 1) / N_STAGES) & 1);
     turn_begin();
@@ -550,6 +622,7 @@ flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     for (int i = 0; i < WK / 2; ++i) sacc[i] = 0.f;
     float m_r[2] = {MASKED, MASKED};
     float l_r[2] = {0.f, 0.f};
+    float corr[2];
 
     mbar_wait(full_q, 0);
     for (int j = 0; j < n_kt; ++j) {
@@ -579,8 +652,8 @@ flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 #pragma unroll
         for (int i = 0; i < WK / 2; ++i) sacc[i] = sacc[i] + other[i * 128 + ct];
       }
-      softmax_tile<WK / 8, DV / 2, false, false, false, false>(sacc, acc, pa, m_r, l_r, j * WK, Lk, tig,
-                                                               scale_log2);
+      softmax_exp<WK / 8, false, false, false>(sacc, m_r, l_r, corr, j * WK, Lk, tig, scale_log2);
+      softmax_pack<WK / 8, DV / 2, false, false, true>(sacc, acc, pa, l_r, corr);
       mbar_wait(full_v + s, (j / W_STAGES) & 1);
       fence_regs(acc);
       fence_regs(pa);
@@ -659,7 +732,7 @@ __global__ void __launch_bounds__(256) split_tf32_vt(const float* __restrict__ v
 }
 
 // One key tile's softmax for the fp32 kernels: s scaled and masked as in
-// softmax_tile, P kept in fp32 (the normaliser sums it), split into the
+// softmax_exp, P kept in fp32 (the normaliser sums it), split into the
 // big and small A fragments of NT k8 steps (keys of step nt: 8 nt ...).
 template <int NT, int NACC, bool NO_MAX>
 __device__ __forceinline__ void softmax_tile_f32(float (&s)[NT * 4], float (&acc)[NACC], uint32_t (&pb)[NT][4],

@@ -152,6 +152,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+// A read of the SM's clock.  ptxas moves no instruction across it, so it
+// pins the order of the SASS on either side.  The value goes into `sink`,
+// which the caller keeps alive: ptxas may drop a read whose value is unused.
+__device__ __forceinline__ void schedule_fence(unsigned long long& sink) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  sink += t;
+}
+
 // Hide a value's origin from the optimizer, so that descriptors built from
 // it are computed where they are used instead of hoisted into registers.
 __device__ __forceinline__ void opaque(uint64_t& x) { asm volatile("" : "+l"(x)); }

@@ -11,6 +11,10 @@ card and skip without one.  JAX is imported inside the tests that use it,
 so that on the card (which has no JAX) this file runs its ``cuda`` tests:
 ``python -m pytest tests/test_torch_flash_attention.py -m cuda --noconftest``."""
 
+import re
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -197,6 +201,36 @@ def test_cuda_narrow_at_the_heads_width(name, d, lq, lk):
     plain = fa.attention_exp2_reference(q, k, v, scale, no_max=name == "nomax")
     err, ref_scale = (got.float() - plain.float()).abs().max().item(), plain.float().abs().max().item()
     assert err <= 2e-2 * ref_scale, (err, ref_scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,keys", [(40, 128), (80, 64)])
+def test_cuda_exp2_half_runs_under_the_pv(d, keys):
+    """K1's steady-state turn at SD1.5's widths, in the built library's SASS:
+    every ex2 of a tile (one a score a thread, keys / 2) issues after the
+    wait for Q K^T and before the wait for the previous tile's P V, and no
+    conversion of the pack comes between them.  Unpinned, ptxas hoists that
+    wait above all but one ex2 and the exp2 no longer runs under the P V
+    (``schedule_fence``, ``narrow_fenced`` in ``csrc/flash_attn.cu``)."""
+    _cuda()
+    from rollingdepth_torch.ops import _build
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    _build.load("flash_attn")
+    sass = subprocess.run([cuobjdump, "-sass", _build._lib_path("flash_attn")], capture_output=True, text=True,
+                          check=True).stdout
+    name = f"flash_fwd_narrowILi{d}ELb1ELb1ELb0ELb0E"  # K1: NO_MAX, SUM_ROUNDED
+    (block,) = [b for b in sass.split("Function : ") if name in b.split("\n")[0]]
+    ops = []
+    for line in block.splitlines():
+        m = re.search(r"\*/\s+(?:@!?U?P\d\s+)?(MUFU\.EX2|F2FP\S*|WARPGROUP\.DEPBAR\.LE gsb0, 0x[01])", line)
+        if m:
+            ops.append(m.group(1)[-1] if m.group(1).startswith("WARPGROUP") else m.group(1).split(".")[0])
+    waits = [i for i, op in enumerate(ops) if op == "1"]
+    assert waits
+    for i in waits:
+        end = ops.index("0", i)
+        assert ops[i + 1:end].count("MUFU") == keys // 2 and "F2FP" not in ops[i + 1:end], ops[i:end + 2]
 
 
 @pytest.mark.cuda
